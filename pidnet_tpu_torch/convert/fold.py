@@ -9,7 +9,8 @@ pidnet_tpu/convert/fold.py).
 
 The JAX package also emits space-to-depth stem weights (`s2d.*`); the port
 runs the canonical stem and has none. `models.pidnet.build(spec, sd,
-folded=True)` consumes the result.
+folded=True)` consumes the result. `calibrate_bn` settles the running
+statistics of random weights before folding.
 """
 
 from __future__ import annotations
@@ -18,6 +19,23 @@ import torch
 
 from pidnet_tpu_torch.models import pidnet as M
 from pidnet_tpu_torch.nn.functional import BN_EPS
+
+
+@torch.no_grad()
+def calibrate_bn(state_dict: dict, spec, x, iters: int = 12) -> dict:
+    """BN running statistics settled on real activations: `iters`
+    training-mode forwards of NHWC `x` (no gradient step), on x's device.
+    Returns the new running_mean/running_var tensors by name.
+
+    At random init BN is the identity, so activations and logits explode
+    with depth; a few training-mode forwards move the running statistics
+    toward the activations' own, as a real run's first steps do."""
+    x = torch.as_tensor(x)
+    model = M.build(spec, state_dict, device=x.device, train=True)
+    for _ in range(iters):
+        model(x)
+    return {k: v for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
 
 
 def _bn_scale(sd: dict, bn: str) -> torch.Tensor:

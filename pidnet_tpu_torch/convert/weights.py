@@ -2,7 +2,8 @@
 pidnet_tpu/convert/torch_weights.py).
 
 - JAX parameter/state dicts (HWIO conv weights, any float dtype) <->
-  port state dicts (OIHW float32 torch tensors, the same key names);
+  port state dicts (OIHW float32 torch tensors, the same key names), and a
+  whole JAX TrainState (params, state, SGD momentum keyed like params);
 - the `.npz` format of runs/train2k/weights_f16.npz: `p.<name>` params and
   `s.<name>` BN state, float16, HWIO;
 - reference PyTorch `.pt`/`.pth.tar` checkpoints, whose keys may carry the
@@ -50,6 +51,19 @@ def to_jax(state_dict: dict) -> tuple[dict, dict]:
         target = state if k.endswith(("running_mean", "running_var")) else params
         target[k] = arr
     return params, state
+
+
+def train_state_from_jax(params: dict, state: dict, momentum: dict) -> tuple[dict, dict]:
+    """A JAX TrainState's (params, state, momentum) -> (port state dict,
+    port momentum dict), both OIHW float32."""
+    return from_jax(params, state), from_jax(momentum, {})
+
+
+def train_state_to_jax(state_dict: dict, momentum: dict) -> tuple[dict, dict, dict]:
+    """Port (state dict, momentum dict) -> JAX (params, state, momentum)
+    numpy dicts, HWIO."""
+    params, state = to_jax(state_dict)
+    return params, state, to_jax(momentum)[0]
 
 
 def load_npz(path: str) -> dict:

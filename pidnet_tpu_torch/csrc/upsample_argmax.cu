@@ -18,47 +18,24 @@
 // logits tensor to L1/L2: the 8 neighbouring pixels of an 8x upsample
 // share their taps.
 //
-// Arithmetic, matching torch's upsample_bilinear2d (and the JAX
-// package's ops/resize.py::_interp_matrix): source index in float32,
-//   align_corners:  src = dst * (in-1)/(out-1)   (0 when out == 1)
-//   otherwise:      src = max(0, (dst+0.5) * in/out - 0.5)
-// i0 = (int)src, i1 = i0 + (i0 < in-1), l1 = src - i0, l0 = 1 - l1; the
-// value is h0*(w0*v00 + w1*v01) + h1*(w0*v10 + w1*v11), in fp32 for bf16
-// and fp32 inputs alike. The running max uses strict `>`, so ties keep
-// the lowest class, as torch.argmax and the TPU kernel do.
+// Arithmetic: the source taps of bilinear.cuh (shared with ce_front.cu),
+// which follow torch's upsample_bilinear2d in float32. The running max
+// uses strict `>`, so ties keep the lowest class, as torch.argmax and the
+// TPU kernel do.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bilinear.cuh"
+
 namespace {
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ float source_scale(int in, int out, bool align_corners) {
-  if (align_corners) return out > 1 ? (float)(in - 1) / (float)(out - 1) : 0.f;
-  return (float)in / (float)out;
-}
-
-// Source taps of output index `dst`: i0, the step to i1 (0 or 1), lambda1.
-__device__ __forceinline__ void source_taps(int dst, float scale, int in, bool align_corners,
-                                            int* i0, int* step, float* l1) {
-  float src = align_corners ? scale * (float)dst
-                            : fmaxf(scale * ((float)dst + 0.5f) - 0.5f, 0.f);
-  int i = min((int)src, in - 1);
-  *i0 = i;
-  *step = i < in - 1 ? 1 : 0;
-  *l1 = src - (float)i;
-}
 
 template <typename T>
 __global__ void upsample_argmax_kernel(const T* __restrict__ logits, int32_t* __restrict__ out,
                                        int n, int h, int w, int c, int oh, int ow,
                                        bool align_corners) {
   const int64_t total = (int64_t)n * oh * ow;
-  const float sh = source_scale(h, oh, align_corners);
-  const float sw = source_scale(w, ow, align_corners);
+  const float sh = bilinear::source_scale(h, oh, align_corners);
+  const float sw = bilinear::source_scale(w, ow, align_corners);
   for (int64_t p = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; p < total;
        p += (int64_t)gridDim.x * blockDim.x) {
     const int ox = (int)(p % ow);
@@ -66,22 +43,12 @@ __global__ void upsample_argmax_kernel(const T* __restrict__ logits, int32_t* __
     const int oy = (int)(rest % oh);
     const int b = (int)(rest / oh);
 
-    int y0, ystep, x0, xstep;
-    float h1, w1;
-    source_taps(oy, sh, h, align_corners, &y0, &ystep, &h1);
-    source_taps(ox, sw, w, align_corners, &x0, &xstep, &w1);
-    const float h0 = 1.f - h1, w0 = 1.f - w1;
-
-    const T* r0 = logits + (((int64_t)b * h + y0) * w + x0) * c;
-    const T* r1 = r0 + (int64_t)ystep * w * c;
-    const int dx = xstep * c;
+    const bilinear::Taps<T> t(logits, b, oy, ox, h, w, c, sh, sw, align_corners);
 
     float best = 0.f;
     int best_c = 0;
     for (int k = 0; k < c; ++k) {
-      const float top = w0 * to_float(r0[k]) + w1 * to_float(r0[k + dx]);
-      const float bot = w0 * to_float(r1[k]) + w1 * to_float(r1[k + dx]);
-      const float v = h0 * top + h1 * bot;
+      const float v = t.value(k);
       if (k == 0 || v > best) {
         best = v;
         best_c = k;

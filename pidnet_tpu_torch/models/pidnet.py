@@ -12,7 +12,11 @@ pidnet_tpu/models/pidnet.py, whose canonical `_forward` this mirrors).
   resolution; inside, tensors are NCHW views (channels_last when the
   input and weights are), and the activation dtype is the compute dtype;
 - every interior bilinear resize uses align_corners=False;
-- `augment=True` returns `[p_logits, logits, d_logits]`.
+- `augment=True` returns `[p_logits, logits, d_logits]`;
+- in training mode (`build(..., train=True)`) each BN normalises with its
+  batch statistics and updates its running buffers in place; a bf16 input
+  runs every conv in bf16 on fp32 weights cast at the conv (the JAX
+  `compute_dtype=bfloat16` contract).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from pidnet_tpu_torch.nn.functional import (
     affine,
     avg_pool2d,
     batch_norm_infer,
+    batch_norm_train,
     conv2d,
     global_avg_pool,
     relu,
@@ -77,7 +82,9 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm, eps 1e-5; keys weight/bias/running_mean/running_var."""
+    """BatchNorm, eps 1e-5; keys weight/bias/running_mean/running_var. In
+    training mode it normalises with the batch statistics and updates the
+    running buffers in place (momentum 0.1, unbiased variance)."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -87,7 +94,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.empty(ch))
 
     def forward(self, x):
-        return batch_norm_infer(x, self.weight, self.bias, self.running_mean, self.running_var)
+        if not self.training:
+            return batch_norm_infer(x, self.weight, self.bias, self.running_mean,
+                                    self.running_var)
+        y, mean, var = batch_norm_train(x, self.weight, self.bias, self.running_mean,
+                                        self.running_var)
+        with torch.no_grad():
+            self.running_mean.copy_(mean)
+            self.running_var.copy_(var)
+        return y
 
 
 class Affine(nn.Module):
@@ -431,10 +446,14 @@ class PIDNet(nn.Module):
 
 
 def build(spec: PIDNetSpec, state_dict: dict, *, folded: bool = False,
-          device="cpu") -> PIDNet:
-    """An eval-mode PIDNet on `device` holding `state_dict`'s tensors. Keys
-    the model lacks, such as the aux heads of an augment=False model, are
-    ignored; a key the model needs and `state_dict` lacks raises."""
+          device="cpu", train: bool = False) -> PIDNet:
+    """A PIDNet on `device` holding `state_dict`'s tensors as fp32: in eval
+    mode, or with `train=True` an unfolded model in training mode, in
+    channels_last, whose parameters take gradients. Keys the model lacks,
+    such as the aux heads of an augment=False model, are ignored; a key the
+    model needs and `state_dict` lacks raises."""
+    if train and folded:
+        raise ValueError("a folded model has no BN to train")
     with torch.device("meta"):
         model = PIDNet(spec, folded=folded)
     model = model.to_empty(device=device)
@@ -443,6 +462,8 @@ def build(spec: PIDNetSpec, state_dict: dict, *, folded: bool = False,
     if missing:
         raise KeyError(f"state_dict lacks {len(missing)} tensors, e.g. {missing[:3]}")
     model.load_state_dict({k: state_dict[k] for k in want})
+    if train:
+        return model.to(memory_format=torch.channels_last).train()
     return model.eval()
 
 

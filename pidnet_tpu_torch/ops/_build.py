@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and compiles with `nvcc` for
 `sm_90a` into `pidnet_tpu_torch/csrc/build/<name>-<hash>.so` (listed in
-.gitignore), keyed by a hash of its source and flags, at first use; it is
-loaded with `ctypes`. Nothing here runs at import.
+.gitignore), keyed by a hash of its source, the shared `csrc/*.cuh` headers
+and the flags, at first use; it is loaded with `ctypes`. Nothing here runs
+at import.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC / "build"
+# -DNDEBUG compiles the kernels' device asserts out; drop it to debug them
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-DNDEBUG",
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
@@ -41,8 +43,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, keyed by its source, the shared headers and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    text += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD / f"{name}-{digest}.so"
 
 

@@ -1,0 +1,228 @@
+"""Fused loss front: bilinear upsample + log-softmax + NLL, differentiable
+in the logits (counterpart of pidnet_tpu/ops/ce_front.py).
+
+The training objective evaluates cross-entropy at label resolution on
+logits made at 1/8 resolution. Upsampling first writes an (N,H,W,C) tensor
+to device memory and reads it back for the log-softmax, forward and
+backward. The CUDA kernels (csrc/ce_front.cu) compute the per-pixel
+ingredients straight from the low-resolution logits:
+
+    forward:  nll = logsumexp_c(z) - z[label],  w = cw[label]
+    backward: dL = A^T (g * (softmax(z) - onehot(label))) B
+
+where z is the bilinear upsample of the logits (A, B the 1-D operators of
+ops/resize.py) and g the gradient of the nll map. A pixel whose label is
+the ignore label or outside [0, C) has nll = 0, w = 0 and no gradient, as
+in the JAX package's XLA path (`_per_pixel_ce`). The weight map carries no
+gradient.
+
+`ce_maps` runs `ce_front_fwd` / `ce_front_bwd` inside a
+`torch.autograd.Function`. Each launches its kernel for a CUDA tensor
+(bf16 or fp32 logits, both align_corners modes, any size; fp32 arithmetic)
+and raises on what the kernel does not take; for a CPU tensor it runs the
+plain version, `ce_front_fwd_plain` / `ce_front_bwd_plain`. `fwd_launches`
+and `bwd_launches` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from pidnet_tpu_torch.ops.resize import _interp_matrix, interpolate
+
+fwd_launches = 0
+bwd_launches = 0
+
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_SMEM_BYTES = 48 * 1024  # the backward's window, without an opt-in
+_fns: dict = {}
+
+
+def class_weights_on(class_weights, c: int, device) -> torch.Tensor:
+    """(C,) fp32 class weights on `device`; None means ones. A tensor that
+    is already there is returned as it is; anything else is copied from
+    the host, a copy that waits for the device."""
+    if class_weights is None:
+        return torch.ones(c, dtype=torch.float32, device=device)
+    return torch.as_tensor(class_weights, dtype=torch.float32, device=device)
+
+
+def _z(logits: torch.Tensor, out_hw, align_corners: bool) -> torch.Tensor:
+    """(N,OH,OW,C) fp32 bilinear upsample of NHWC logits (F.interpolate)."""
+    x = logits.permute(0, 3, 1, 2).float()
+    return interpolate(x, out_hw, align_corners).permute(0, 2, 3, 1)
+
+
+def ce_front_fwd_plain(logits, labels, class_weights, ignore_label: int, out_hw,
+                       align_corners: bool):
+    """(nll, w), each (N,OH,OW) fp32: F.interpolate in fp32, then the
+    one-hot CE maps of losses.criterion._per_pixel_ce (the counterpart of
+    the JAX package's `_xla_ce_maps`)."""
+    from pidnet_tpu_torch.losses.criterion import _per_pixel_ce
+
+    cw = class_weights_on(class_weights, logits.shape[-1], logits.device)
+    nll, w, valid = _per_pixel_ce(_z(logits, out_hw, align_corners), labels, cw, ignore_label)
+    return torch.where(valid, nll, 0.0), w
+
+
+def ce_front_bwd_plain(logits, labels, ignore_label: int, out_hw, align_corners: bool, g):
+    """dL (N,h,w,C) in the logits' dtype: the explicit formula
+    A^T (g * (softmax(z) - onehot)) B with the dense operators of
+    ops/resize._interp_matrix, g zeroed where the label is ignore or
+    outside [0, C)."""
+    n, h, w, c = logits.shape
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    p = torch.softmax(_z(logits, (oh, ow), align_corners), dim=-1)
+    labels = labels.long()
+    counted = (labels != ignore_label) & (labels >= 0) & (labels < c)
+    onehot = torch.where(counted, labels, 0)[..., None] == torch.arange(c, device=labels.device)
+    dz = torch.where(counted, g.float(), 0.0)[..., None] * (p - onehot.float())
+    a = torch.from_numpy(_interp_matrix(h, oh, align_corners)).to(logits.device)
+    b = torch.from_numpy(_interp_matrix(w, ow, align_corners)).to(logits.device)
+    return torch.einsum("yi,nyxc,xj->nijc", a, dz, b).to(logits.dtype)
+
+
+def _kernel_fn(kind: str, dtype: torch.dtype):
+    name = f"ce_{kind}_{_SUFFIX[dtype]}"
+    if name not in _fns:
+        from pidnet_tpu_torch.ops._build import library
+
+        fn = getattr(library("ce_front"), name)
+        n_ints = 8 if kind == "fwd" else 12
+        n_ptrs = 5 if kind == "fwd" else 4
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return _fns[name]
+
+
+def _check(fn_name: str, logits, labels, out_hw, g=None):
+    """Raise on what the kernels do not take; returns (n, h, w, c, oh, ow)."""
+    if logits.device.type != "cuda":
+        raise ValueError(f"{fn_name}: unsupported device {logits.device}")
+    if logits.dim() != 4:
+        raise ValueError(f"{fn_name}: expected (N,h,w,C) logits, got {tuple(logits.shape)}")
+    if logits.dtype not in _SUFFIX:
+        raise TypeError(f"{fn_name}: dtype {logits.dtype} not in (bfloat16, float32)")
+    n, h, w, c = logits.shape
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if min(n, h, w, c, oh, ow) < 1:
+        raise ValueError(f"{fn_name}: empty shape {tuple(logits.shape)} -> {(oh, ow)}")
+    for name, t, dtype in (("labels", labels, torch.int32), ("g", g, torch.float32)):
+        if t is None:
+            continue
+        if tuple(t.shape) != (n, oh, ow) or t.dtype != dtype or t.device != logits.device:
+            raise ValueError(f"{fn_name}: {name} must be {dtype} (N,OH,OW)={(n, oh, ow)} on "
+                             f"{logits.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    for name, t in (("logits", logits), ("labels", labels), ("g", g)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{fn_name}: {name} must be contiguous")
+    return n, h, w, c, oh, ow
+
+
+def ce_front_fwd(logits, labels, class_weights, ignore_label: int, out_hw,
+                 align_corners: bool):
+    """(nll, w), each (N,OH,OW) fp32, from (N,h,w,C) logits and (N,OH,OW)
+    labels. On a CUDA tensor (contiguous NHWC bf16/fp32 logits, contiguous
+    int32 labels) this launches the forward kernel; on a CPU tensor it
+    runs `ce_front_fwd_plain`."""
+    global fwd_launches
+    if logits.device.type == "cpu":
+        return ce_front_fwd_plain(logits, labels, class_weights, ignore_label, out_hw,
+                                  align_corners)
+    n, h, w, c, oh, ow = _check("ce_front_fwd", logits, labels, out_hw)
+    fn = _kernel_fn("fwd", logits.dtype)
+    with torch.cuda.device(logits.device):
+        cw = class_weights_on(class_weights, c, logits.device)
+        nll = torch.empty((n, oh, ow), dtype=torch.float32, device=logits.device)
+        wmap = torch.empty_like(nll)
+        stream = torch.cuda.current_stream(logits.device).cuda_stream
+        err = fn(logits.data_ptr(), labels.data_ptr(), cw.data_ptr(), nll.data_ptr(),
+                 wmap.data_ptr(), n, h, w, c, oh, ow, int(ignore_label),
+                 int(bool(align_corners)), stream)
+    if err != 0:
+        raise RuntimeError(f"ce_front_fwd kernel launch failed: cudaError {err}")
+    fwd_launches += 1
+    return nll, wmap
+
+
+def _window(in_size: int, out_size: int, tile: int, align_corners: bool) -> int:
+    """Source pixels a run of `tile` output indices can touch: the span of
+    their source indices, one more for the last tap, two for rounding."""
+    if align_corners:
+        scale = (in_size - 1) / (out_size - 1) if out_size > 1 else 0.0
+    else:
+        scale = in_size / out_size
+    return min(in_size, int(math.floor(scale * (tile - 1))) + 4)
+
+
+def backward_tile(h: int, w: int, c: int, oh: int, ow: int, align_corners: bool):
+    """(tile_h, tile_w, win_h, win_w) of the backward kernel: the largest
+    output tile, from 32x32 down, whose source window of C fp32 values fits
+    in 48 KB of shared memory."""
+    th, tw = 32, 32
+    while True:
+        wh, ww = _window(h, oh, th, align_corners), _window(w, ow, tw, align_corners)
+        if wh * ww * c * 4 <= _SMEM_BYTES:
+            return th, tw, wh, ww
+        if th == tw == 1:
+            raise ValueError(f"ce_front_bwd: {c} classes do not fit the shared-memory window")
+        if th >= tw:
+            th //= 2
+        else:
+            tw //= 2
+
+
+def ce_front_bwd(logits, labels, ignore_label: int, out_hw, align_corners: bool, g):
+    """dL (N,h,w,C) in the logits' dtype from the nll map's gradient g
+    (N,OH,OW). On a CUDA tensor this launches the backward kernel, which
+    accumulates in fp32; on a CPU tensor it runs `ce_front_bwd_plain`."""
+    global bwd_launches
+    if logits.device.type == "cpu":
+        return ce_front_bwd_plain(logits, labels, ignore_label, out_hw, align_corners, g)
+    n, h, w, c, oh, ow = _check("ce_front_bwd", logits, labels, out_hw, g)
+    th, tw, wh, ww = backward_tile(h, w, c, oh, ow, align_corners)
+    fn = _kernel_fn("bwd", logits.dtype)
+    with torch.cuda.device(logits.device):
+        dl = torch.zeros((n, h, w, c), dtype=torch.float32, device=logits.device)
+        stream = torch.cuda.current_stream(logits.device).cuda_stream
+        err = fn(logits.data_ptr(), labels.data_ptr(), g.data_ptr(), dl.data_ptr(), n, h, w, c,
+                 oh, ow, int(ignore_label), int(bool(align_corners)), th, tw, wh, ww, stream)
+    if err != 0:
+        raise RuntimeError(f"ce_front_bwd kernel launch failed: cudaError {err}")
+    bwd_launches += 1
+    return dl.to(logits.dtype)
+
+
+class _CEFront(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, class_weights, ignore_label, out_hw, align_corners):
+        nll, w = ce_front_fwd(logits, labels, class_weights, ignore_label, out_hw,
+                              align_corners)
+        ctx.save_for_backward(logits, labels)
+        ctx.args = (ignore_label, out_hw, align_corners)
+        ctx.mark_non_differentiable(w)
+        return nll, w
+
+    @staticmethod
+    def backward(ctx, g_nll, g_w):
+        logits, labels = ctx.saved_tensors
+        ignore_label, out_hw, align_corners = ctx.args
+        dl = ce_front_bwd(logits, labels, ignore_label, out_hw, align_corners,
+                          g_nll.float().contiguous())
+        return dl, None, None, None, None, None
+
+
+def ce_maps(logits, labels, class_weights, ignore_label: int, out_hw, align_corners: bool):
+    """(per-pixel nll, per-pixel class weight), each (N,OH,OW) fp32, from
+    (N,h,w,C) logits and (N,OH,OW) int labels; differentiable in `logits`
+    (the weight map is not). Ignored pixels, and labels outside [0, C),
+    give (0, 0)."""
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if logits.device.type != "cpu":
+        labels = labels.to(torch.int32)
+    return _CEFront.apply(logits.contiguous(), labels.contiguous(), class_weights,
+                          int(ignore_label), (oh, ow), bool(align_corners))

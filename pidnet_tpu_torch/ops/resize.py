@@ -3,9 +3,10 @@ pidnet_tpu/ops/resize.py).
 
 The network mixes both align_corners modes: False for every interior
 resize, True at eval time (MODEL.ALIGN_CORNERS) and in tools/custom.
-`_interp_matrix` is kept as the dense 1-D operator the JAX package builds;
-here it documents and tests the source-index arithmetic that the fused
-upsample+argmax kernel (csrc/upsample_argmax.cu) reproduces.
+`source_taps` is torch's float32 source-index arithmetic, the same that
+the CUDA kernels share (csrc/bilinear.cuh); `_interp_matrix` builds from
+it the dense 1-D operator the JAX package builds, which the plain backward
+of the fused loss front (ops/ce_front.py) applies.
 """
 
 from __future__ import annotations
@@ -17,29 +18,37 @@ import torch
 import torch.nn.functional as F
 
 
-@lru_cache(maxsize=None)
-def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarray:
-    """Dense (out_size, in_size) fp32 bilinear interpolation operator.
+def source_taps(in_size: int, out_size: int, align_corners: bool):
+    """(i0, i1, lambda1) of every output index, torch's upsample_bilinear2d
+    source index in float32:
 
-    torch's upsample_bilinear2d source index, in float32:
     align_corners=True:  src = i * (in-1)/(out-1)      (0 when out == 1)
     align_corners=False: src = max(0, (i+0.5) * in/out - 0.5)
-    """
-    A = np.zeros((out_size, in_size), dtype=np.float32)
-    if in_size == out_size:
-        np.fill_diagonal(A, 1.0)
-        return A
+
+    i0 = min(floor(src), in-1), i1 = min(i0+1, in-1), lambda1 = src - i0."""
     i = np.arange(out_size, dtype=np.float32)
     if align_corners:
-        scale = np.float32(in_size - 1) / np.float32(out_size - 1) if out_size > 1 else np.float32(0)
+        scale = np.float32(0)
+        if out_size > 1:
+            scale = np.float32(in_size - 1) / np.float32(out_size - 1)
         src = i * scale
     else:
         scale = np.float32(in_size) / np.float32(out_size)
         src = np.maximum((i + np.float32(0.5)) * scale - np.float32(0.5), np.float32(0))
-    i0 = np.floor(src).astype(np.int64)
-    i0 = np.minimum(i0, in_size - 1)
+    i0 = np.minimum(np.floor(src).astype(np.int64), in_size - 1)
     i1 = np.minimum(i0 + 1, in_size - 1)
-    w1 = (src - i0).astype(np.float32)
+    return i0, i1, (src - i0).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarray:
+    """Dense (out_size, in_size) fp32 bilinear interpolation operator from
+    `source_taps`; at the last tap both weights land on one column."""
+    A = np.zeros((out_size, in_size), dtype=np.float32)
+    if in_size == out_size:
+        np.fill_diagonal(A, 1.0)
+        return A
+    i0, i1, w1 = source_taps(in_size, out_size, align_corners)
     w0 = 1.0 - w1
     np.add.at(A, (np.arange(out_size), i0), w0)
     np.add.at(A, (np.arange(out_size), i1), w1)

@@ -1,0 +1,153 @@
+"""PyTorch port: the fused upsample + CE loss front (ops/ce_front.py) on the
+CPU against the JAX package's ce_maps (its Pallas kernels in interpret
+mode for bf16 logits, its XLA path for fp32), from the same seeded numpy
+inputs. On the CPU the port runs its plain versions; the CUDA kernels are
+held to those on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pidnet_tpu.ops import ce_front as JC
+from pidnet_tpu_torch.ops import ce_front as TC
+from pidnet_tpu_torch.ops.resize import source_taps
+
+torch.set_num_threads(2)
+
+# (N, h, w, C) -> (OH, OW): tests/test_ce_front.py's two shapes
+SHAPES = [((2, 16, 16, 19), (128, 128)), ((2, 16, 24, 11), (120, 96))]
+
+
+def _case(shape, out_hw, seed=304):
+    rng = np.random.default_rng(seed)
+    n, _, _, c = shape
+    logits = (rng.standard_normal(shape) * 2).astype(np.float32)
+    labels = rng.integers(0, c + 2, (n, *out_hw)).astype(np.int32)
+    labels = np.where(labels >= c, 255, labels)  # some ignore pixels
+    cw = (0.8 + rng.random(c)).astype(np.float32)
+    return logits, labels, cw
+
+
+def _port(logits, labels, cw, out_hw, align, dtype=torch.float32):
+    """(nll, w, d(sum(nll*w)/sum(w))/dlogits) of the port, as numpy."""
+    x = torch.from_numpy(logits).to(dtype).requires_grad_()
+    nll, w = TC.ce_maps(x, torch.from_numpy(labels), cw, 255, out_hw, align)
+    ((nll * w).sum() / w.sum()).backward()
+    return nll.detach().numpy(), w.numpy(), x.grad.float().numpy()
+
+
+def _jax(fn, logits, labels, cw, out_hw, align, dtype=jnp.float32):
+    def loss(lg):
+        n_, w_ = fn(lg, labels, cw, 255, out_hw, align)
+        return jnp.sum(n_ * w_) / jnp.sum(w_), (n_, w_)
+
+    (_, (nll, w)), g = jax.value_and_grad(loss, has_aux=True)(jnp.asarray(logits, dtype))
+    return np.asarray(nll), np.asarray(w), np.asarray(g, np.float32)
+
+
+def _cos(a, b):
+    return float((a * b).sum() / np.sqrt((a ** 2).sum() * (b ** 2).sum()))
+
+
+@pytest.mark.parametrize("shape,out_hw", SHAPES)
+def test_bf16_matches_jax_kernel(shape, out_hw):
+    """bf16 logits against the JAX Pallas kernels (interpret mode). That
+    kernel builds its operators and W-interp scratch in bf16, the port
+    lerps in fp32, so the nll bound is test_ce_front's (rtol = atol =
+    0.05) and the gradient's is cos > 0.9999, max-abs <= 0.02 * max."""
+    logits, labels, cw = _case(shape, out_hw)
+    kernel = lambda *a: JC.ce_maps(*a, interpret=True)  # noqa: E731
+    nll_j, w_j, g_j = _jax(kernel, logits, labels, cw, out_hw, True, jnp.bfloat16)
+    nll_t, w_t, g_t = _port(logits, labels, cw, out_hw, True, torch.bfloat16)
+    np.testing.assert_array_equal(w_t, w_j)
+    ignored = labels == 255
+    assert nll_t[ignored].max() == 0 == w_t[ignored].max()
+    np.testing.assert_allclose(nll_t, nll_j, rtol=0.05, atol=0.05)
+    assert _cos(g_t, g_j) > 0.9999
+    assert np.abs(g_t - g_j).max() <= 0.02 * np.abs(g_j).max()
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("shape,out_hw", SHAPES + [((2, 16, 24, 11), (16, 24))])
+def test_fp32_matches_jax_xla(shape, out_hw, align):
+    """fp32 logits against the JAX XLA path (`_xla_ce_maps` and its
+    autodiff), both align_corners modes and the identity size: w exact,
+    nll within 1e-5, gradient within rtol 1e-4."""
+    logits, labels, cw = _case(shape, out_hw)
+    nll_j, w_j, g_j = _jax(JC._xla_ce_maps, logits, labels, cw, out_hw, align)
+    nll_t, w_t, g_t = _port(logits, labels, cw, out_hw, align)
+    np.testing.assert_array_equal(w_t, w_j)
+    np.testing.assert_allclose(nll_t, nll_j, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(g_t, g_j, rtol=1e-4, atol=1e-6 * np.abs(g_j).max())
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("shape,out_hw", SHAPES + [((1, 5, 7, 3), (1, 1)),
+                                                   ((2, 16, 24, 11), (16, 24))])
+def test_bwd_plain_is_autograd_of_fwd_plain(shape, out_hw, align):
+    """The explicit A^T (g (softmax - onehot)) B of ce_front_bwd_plain
+    against torch autograd of ce_front_fwd_plain (rtol 1e-5)."""
+    logits, labels, cw = _case(shape, out_hw)
+    g = np.random.default_rng(1).random((shape[0], *out_hw)).astype(np.float32)
+    x = torch.from_numpy(logits).requires_grad_()
+    lab = torch.from_numpy(labels)
+    nll, _ = TC.ce_front_fwd_plain(x, lab, cw, 255, out_hw, align)
+    (want,) = torch.autograd.grad(nll, x, torch.from_numpy(g))
+    got = TC.ce_front_bwd_plain(x.detach(), lab, 255, out_hw, align, torch.from_numpy(g))
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+def test_labels_outside_classes_follow_the_xla_oracle():
+    """A label neither ignore nor in [0, C) gives nll 0, w 0 and no
+    gradient, as `_per_pixel_ce` (the JAX XLA path) does; the JAX Pallas
+    kernel would write nll = logsumexp there (a reference quirk)."""
+    shape, out_hw = (1, 8, 8, 5), (32, 32)
+    logits, labels, cw = _case(shape, out_hw)
+    labels[0, :4] = 7
+    labels[0, 4:8] = -3
+    nll_j, w_j, g_j = _jax(JC._xla_ce_maps, logits, labels, cw, out_hw, True)
+    nll_t, w_t, g_t = _port(logits, labels, cw, out_hw, True)
+    assert not nll_t[0, :8].any() and not w_t[0, :8].any()
+    np.testing.assert_array_equal(w_t, w_j)
+    np.testing.assert_allclose(nll_t, nll_j, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(g_t, g_j, rtol=1e-4, atol=1e-6 * np.abs(g_j).max())
+
+
+def test_cpu_runs_the_plain_versions_and_other_devices_raise():
+    logits, labels, cw = _case((1, 4, 4, 3), (8, 8))
+    before = (TC.fwd_launches, TC.bwd_launches)
+    x = torch.from_numpy(logits).requires_grad_()
+    nll, w = TC.ce_maps(x, torch.from_numpy(labels), None, 255, (8, 8), True)
+    nll.sum().backward()
+    assert (TC.fwd_launches, TC.bwd_launches) == before
+    assert set(np.unique(w.numpy())) <= {0.0, 1.0} and not w.requires_grad
+    meta = torch.empty((1, 4, 4, 3), device="meta")
+    lab = torch.empty((1, 8, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        TC.ce_front_fwd(meta, lab, cw, 255, (8, 8), True)
+    with pytest.raises(ValueError, match="device"):
+        TC.ce_front_bwd(meta, lab, 255, (8, 8), True, torch.empty((1, 8, 8), device="meta"))
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("hw,out_hw,c", [((128, 128), (1024, 1024), 19),
+                                         ((90, 120), (720, 960), 11),
+                                         ((128, 128), (128, 128), 19),
+                                         ((16, 24), (120, 96), 11),
+                                         ((64, 64), (16, 16), 19),
+                                         ((5, 7), (1, 1), 3)])
+def test_backward_window_holds_every_tap_of_its_tile(hw, out_hw, c, align):
+    """The backward kernel's shared-memory window (backward_tile) covers
+    the source taps of every output tile, and fits in 48 KB."""
+    th, tw, wh, ww = TC.backward_tile(*hw, c, *out_hw, align)
+    assert wh * ww * c * 4 <= 48 * 1024
+    for size, out, tile, win in ((hw[0], out_hw[0], th, wh), (hw[1], out_hw[1], tw, ww)):
+        i0, i1, _ = source_taps(size, out, align)
+        for start in range(0, out, tile):
+            span = i1[start:start + tile].max() - i0[start] + 1
+            assert span <= win, (start, span, win)
