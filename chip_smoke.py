@@ -32,10 +32,38 @@ Phases, each printing its own lines; any failure exits non-zero:
    rtol 1e-3; pixel accuracy equal but for pixels whose two best classes
    are within 1e-3; each segmentation head's logits-gradient cosine >
    0.9999). Then the train step's speed (tools/speed.py --train) and peak
-   memory.
+   memory;
+5. conv: the fused 3x3 conv (K4) against its plain version at the three
+   A/B shapes of tools/conv_ab.py and two small ones (W = 24 among them),
+   with every epilogue (none, bias, ReLU, bias+ReLU, statistics) and bf16
+   and fp32 outputs: y within one bf16 ulp (atol 0.0079, rtol 0.01; fp32
+   within 1e-4 + 1e-4|y|), the statistics within 2e-5 of the sums of the
+   kernel's own fp32 output; then the A/B entry point
+   (tools/conv_ab.run: K4 against cuDNN, three modes per shape), whose K4
+   launches must all be counted, and the plain version's time and the bound
+   at each A/B shape;
+6. eval: PIDNet-S augment with the train2k weights, unfolded, eval mode,
+   on the two sample frames with the frozen fp32 goldens as labels (edges:
+   a 4-neighbour label change of the goldens, a cv2-free stand-in for the
+   dataset's Canny edges): engine.validate over batches [f0, f1], [f0]
+   (the last padded and masked), in fp32 and bf16 through make_eval_step.
+   Gates: each matrix totals the real labelled pixels exactly, final-head
+   pixel accuracy >= 0.995 in fp32 and >= 0.98 in bf16, per batch 3 K1
+   launches in bf16 and 1 in fp32, 2 K2 and 0 K3. Then engine.testval
+   through the folded bf16 class-map closure, its mIoU and pixel accuracy
+   equal to numpy's on the same maps; TTA (folded bf16) on one frame,
+   single-scale, flip only, and TEST.SCALE_LIST + flip (windows above scale
+   1): every value finite, and the class maps of flip and of 6 scales +
+   flip each within 0.01 of the JAX package's recorded agreement with its
+   single-scale map on this frame and these weights (0.863 and 0.811,
+   docs/DESIGN.md round 5); and identity TTA in fp32 against
+   engine.make_inference within 0.01 in clipped log-probability. A bf16
+   val batch and a 6-scale + flip TTA frame are profiled (device busy and
+   their largest kernels).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Without CUDA, or run outside
+The line before the last is a JSON object with one entry per kernel, its
+launches counted over every path that ran it; the last line is
+{"ok": true, "device": {...}}. Without CUDA, or run outside
 the repository, it exits non-zero and prints no result.
 """
 
@@ -47,7 +75,6 @@ import logging
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -88,6 +115,14 @@ CE_CASES = [
 ]
 CE_MAIN = CE_CASES[0]
 
+# (N, H, W, C) of the fused 3x3 conv: the A/B shapes of tools/conv_ab.py,
+# then a width that is no multiple of a tile and a small batch
+CONV_CASES = [(8, 128, 128, 128), (8, 32, 32, 256), (8, 16, 16, 512), (1, 16, 24, 128),
+              (2, 32, 32, 128)]
+CONV_EPILOGUES = [dict(), dict(bias=True), dict(relu=True), dict(bias=True, relu=True),
+                  dict(stats=True), dict(bias=True, relu=True, stats=True)]
+BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
+
 SEED = 304  # the reference's tools/train.py seed, as scripts/train_run_artifact.py
 TRAIN_STEPS = 30
 TRAIN_POOL = 24  # crops made once and cycled, 4 batches of 6
@@ -97,35 +132,6 @@ TRAIN_NUM_ITERS = 2000  # the poly schedule's length, as scripts/train_run_artif
 def check(ok: bool, message: str) -> None:
     if not ok:
         raise RuntimeError(message)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, batches: int = 10, per_batch: int = 20) -> float:
-    """Median over `batches` of the mean time of `per_batch` back-to-back
-    calls, from CUDA events."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_batch):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_batch)
-    return statistics.median(times)
 
 
 def upsample_argmax_bound_ms(shape, out_hw, itemsize: int) -> tuple[float, str]:
@@ -145,6 +151,8 @@ def upsample_argmax_bound_ms(shape, out_hw, itemsize: int) -> tuple[float, str]:
 def phase_kernels(torch, ua) -> dict:
     """K1 against its plain version; returns its JSON entry (no launches yet)."""
     import torch.nn.functional as F
+
+    from pidnet_tpu_torch.utils.timing import time_ms
 
     rng = np.random.default_rng(0)
     max_abs_err = 0.0
@@ -243,6 +251,8 @@ def phase_ce_front(torch, cf) -> tuple[dict, dict]:
     """K2 and K3 against their plain versions; returns their JSON entries."""
     import torch.nn.functional as F
 
+    from pidnet_tpu_torch.utils.timing import time_ms
+
     rng = np.random.default_rng(1)
     err_fwd = err_bwd = 0.0
     for shape, out_hw in CE_CASES:
@@ -312,6 +322,87 @@ def phase_ce_front(torch, cf) -> tuple[dict, dict]:
             "bound_by": bound_by, "library_ms": library_ms,
         })
     return entries[0], entries[1]
+
+
+def conv_bound_ms(shape) -> tuple[float, str]:
+    """Least time for a C->C 3x3 conv on an H100: the larger of its
+    2*N*H*W*9*C*C operations over 989 TFLOP/s bf16 and its bytes (x and y
+    in bf16, w in bf16) over 3.35 TB/s."""
+    n, h, w, c = shape
+    t_ops = 2 * n * h * w * 9 * c * c / BF16_FLOPS * 1e3
+    t_bytes = (2 * n * h * w * c * 2 + 9 * c * c * 2) / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_conv(torch, conv) -> dict:
+    """K4 against its plain version, then its A/B entry point; returns its
+    JSON entry with the launches that tools/conv_ab made."""
+    from pidnet_tpu_torch.tools import conv_ab
+    from pidnet_tpu_torch.utils.timing import time_ms
+
+    rng = np.random.default_rng(2)
+    max_abs_err = 0.0
+    for shape in CONV_CASES:
+        n, h, w, c = shape
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+        wt = torch.from_numpy(rng.standard_normal((3, 3, c, c), dtype=np.float32) * 0.02).cuda()
+        b = torch.from_numpy(rng.standard_normal(c, dtype=np.float32)).cuda()
+        for ep in CONV_EPILOGUES:
+            kw = dict(b=b if ep.get("bias") else None, relu=ep.get("relu", False),
+                      stats=ep.get("stats", False))
+            for out_dtype in (torch.bfloat16, torch.float32):
+                got = conv.conv3x3(x, wt, out_dtype=out_dtype, **kw)
+                want = conv.conv3x3_plain(x, wt, out_dtype=out_dtype, **kw)
+                line = ""
+                if kw["stats"]:
+                    (got, st), (want, st_p) = got, want
+                    # the kernel's own fp32 output, summed in fp64
+                    y32 = conv.conv3x3(x, wt, kw["b"], relu=kw["relu"],
+                                       out_dtype=torch.float32).double().reshape(-1, c)
+                    scale = torch.stack([y32.abs().sum(0), (y32 * y32).sum(0)])
+                    own = torch.stack([y32.sum(0), (y32 * y32).sum(0)])
+                    e_own = ((st.double() - own).abs() / scale.clamp(min=1e-30)).max().item()
+                    e_plain = ((st - st_p).abs() / st_p.abs().clamp(min=1e-30)).max().item()
+                    check(e_own <= 2e-5, f"conv3x3 {shape} {ep}: stats off their own sums "
+                          f"by {e_own:.3e}")
+                    line = (f", stats vs own fp32 sums {e_own:.2e} (<= 2e-5 of the sums of "
+                            f"|y| and y^2), vs plain stats rel {e_plain:.2e} (not gated)")
+                torch.cuda.synchronize()
+                check(got.shape == want.shape == (n, h, w, c) and got.dtype == out_dtype,
+                      f"conv3x3 output {got.shape} {got.dtype}")
+                err = (got.float() - want.float()).abs()
+                atol, rtol = (0.0079, 0.01) if out_dtype == torch.bfloat16 else (1e-4, 1e-4)
+                bad = int((err > atol + rtol * want.float().abs()).sum())
+                max_abs_err = max(max_abs_err, err.max().item())
+                print(f"kernel conv3x3 {shape} {sorted(ep)} {str(out_dtype)[6:]}: max err "
+                      f"{err.max().item():.3e}, outside atol {atol} rtol {rtol}: {bad}{line}")
+                check(bad == 0, f"conv3x3 {shape} {ep} disagrees with its plain version")
+
+    conv.launches = 0  # the A/B entry point, K4's path, starts here
+    rows, calls = conv_ab.run("cuda")
+    torch.cuda.synchronize()
+    launches = conv.launches
+    check(launches == calls > 0, f"conv3x3 launched {launches} times for {calls} calls")
+    print(f"conv_ab: conv3x3 launches {launches} for {calls} calls through tools/conv_ab")
+    plain_ms = {}
+    for name, n, h, w, c in conv_ab.SHAPES:
+        x, wt, _ = conv_ab.inputs(n, h, w, c, "cuda")
+        plain_ms[(n, h, w, c)] = time_ms(lambda: conv.conv3x3_plain(x, wt), batches=5,
+                                         per_batch=5)
+    for row in rows:
+        name, shape, mode, ms, library_ms, _, _ = row
+        bound_ms, bound_by = conv_bound_ms(shape)
+        print(f"{conv_ab.format_row(row, torch.device('cuda'))}; plain version "
+              f"{plain_ms[shape]:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+              f"{bound_ms / ms:.1%} of it, cuDNN at {bound_ms / library_ms:.1%}")
+    name, shape, mode, ms, library_ms, _, _ = rows[0]
+    bound_ms, bound_by = conv_bound_ms(shape)
+    return {
+        "name": "conv3x3", "route": "cuda", "source": "pidnet_tpu_torch/csrc/conv3x3.cu",
+        "replaces": "pidnet_tpu/ops/conv3x3.py:41", "launches": launches,
+        "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms[shape],
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
 
 
 def fp32_reference(torch, M, sd, x):
@@ -545,6 +636,200 @@ def phase_train(torch, card: str) -> dict:
     return counts
 
 
+def edges_of(labels: np.ndarray) -> np.ndarray:
+    """1 where a pixel's label differs from one of its 4 neighbours: a
+    cv2-free stand-in for the dataset's Canny edge labels."""
+    e = np.zeros(labels.shape, bool)
+    dv = labels[:, 1:] != labels[:, :-1]
+    dh = labels[:, :, 1:] != labels[:, :, :-1]
+    e[:, 1:] |= dv
+    e[:, :-1] |= dv
+    e[:, :, 1:] |= dh
+    e[:, :, :-1] |= dh
+    return e.astype(np.float32)
+
+
+class _Loader:
+    def __init__(self, batches, batch_size):
+        self.batches, self.batch_size = batches, batch_size
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def numpy_scores(preds: list, labels: list) -> tuple[float, float]:
+    """(mean IoU, pixel accuracy) of class maps against labels, from a
+    numpy confusion matrix."""
+    cm = np.zeros((19, 19), np.float64)
+    for p, g in zip(preds, labels):
+        cm += np.bincount((g.astype(np.int64) * 19 + p).reshape(-1),
+                          minlength=361).reshape(19, 19)
+    tp = np.diag(cm)
+    iou = tp / np.maximum(1.0, cm.sum(1) + cm.sum(0) - tp)
+    return float(iou.mean()), float(tp.sum() / max(cm.sum(), 1.0))
+
+
+def profile(title: str, fn, x, card: str, steps: int = 3) -> None:
+    """Print the wall and device-busy time per call of fn(x) under
+    torch.profiler and its largest kernels (tools/speed.device_breakdown)."""
+    import torch
+
+    from pidnet_tpu_torch.tools.speed import device_breakdown
+
+    wall, busy, rows = device_breakdown(fn, x, torch.device("cuda"), steps, top=8)
+    print(f"{title}: profiled {wall:.1f} ms/call wall, device busy {busy:.1f} ms "
+          f"({busy / wall:.1%}), idle {1 - busy / wall:.1%} [{card}]")
+    for name, ms, count in rows:
+        print(f"  {ms:8.3f} ms {count:6.1f}x  {name[:100]}")
+
+
+def phase_eval(torch, card: str) -> dict:
+    """Validate, testval and TTA on the sample frames; returns the launch
+    counts of K1-K3 on these paths."""
+    from pidnet_tpu_torch import engine
+    from pidnet_tpu_torch.convert.fold import fold_state_dict
+    from pidnet_tpu_torch.convert.weights import load_npz
+    from pidnet_tpu_torch.data.cityscapes import CLASS_WEIGHTS
+    from pidnet_tpu_torch.data.png import read_png
+    from pidnet_tpu_torch.data.transforms import input_transform
+    from pidnet_tpu_torch.losses.criterion import FullLoss
+    from pidnet_tpu_torch.metrics import acc_from_cm, iou_from_cm
+    from pidnet_tpu_torch.models import pidnet as M
+    from pidnet_tpu_torch.ops import ce_front as cf
+    from pidnet_tpu_torch.ops import upsample_argmax as ua
+    from pidnet_tpu_torch.train.step import make_eval_step
+
+    sd = load_npz(WEIGHTS)
+    goldens = np.load(GOLDENS)
+    names = list(goldens.files)
+    images = np.concatenate([input_transform(read_png(os.path.join(SAMPLES, k)),
+                                             bgr_to_rgb=False)[None] for k in names])
+    labels = np.stack([goldens[k].astype(np.int32) for k in names])
+    edges = edges_of(labels)
+    pixels = labels[0].size
+    spec = M.spec_for("pidnet_s", 19, augment=True)
+    model = M.build(spec, sd, device="cuda").to(memory_format=torch.channels_last)
+    loss_fn = FullLoss(ignore_label=255, class_weights=CLASS_WEIGHTS, use_ohem=True,
+                       ohem_thres=0.9, ohem_kept=131072, balance_weights=(0.4, 1.0),
+                       sb_weights=1.0)
+    cfg = engine.config(output_index=1, ignore_label=255)
+    loader = _Loader([(images, labels, edges, None, None),
+                      (images[:1], labels[:1], edges[:1], None, None)], 2)
+    counts = {"upsample_argmax": 0, "ce_front_fwd": 0, "ce_front_bwd": 0}
+    logging.getLogger("pidnet_tpu_torch").setLevel(logging.WARNING)  # the lines below say it
+    runs = [(None, 1, 0.995)] * 2 + [(torch.bfloat16, 3, 0.98)] * 2  # the first of each warms up
+    for dtype, k1_per_batch, gate in runs:
+        step = make_eval_step(model, loss_fn, num_classes=19, compute_dtype=dtype)
+        cms = []
+
+        def recording_step(*batch):
+            metrics, batch_cms = step(*batch)
+            cms.append(batch_cms.cpu().numpy())
+            return metrics, batch_cms
+
+        ua.launches = cf.fwd_launches = cf.bwd_launches = 0  # the eval path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ave_loss, miou, _ = engine.validate(cfg, loader, recording_step,
+                                            {"writer": _NoWriter(), "valid_global_steps": 0})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"upsample_argmax": ua.launches, "ce_front_fwd": cf.fwd_launches,
+               "ce_front_bwd": cf.bwd_launches}
+        for k in counts:
+            counts[k] += got[k]
+        totals = [[int(c.sum()) for c in batch] for batch in cms]
+        acc = acc_from_cm(sum(batch[-1] for batch in cms))[0]
+        name = "fp32" if dtype is None else "bf16"
+        print(f"eval validate {name}: batches [f0, f1], [f0] (padded, masked, from host arrays) "
+              f"in {wall * 1e3:.1f} ms ({wall * 1e3 / len(cms):.1f} ms/batch) [{card}]; loss "
+              f"{ave_loss:.6f}, final-head mIoU vs goldens {miou:.6f}, pixel acc "
+              f"{acc:.6f} (>= {gate}), p-head mIoU {iou_from_cm(sum(b[0] for b in cms))[1]:.6f}; "
+              f"matrix totals {totals}; launches {got}")
+        check(totals == [[2 * pixels] * 2, [pixels] * 2], f"eval {name}: matrix totals {totals}")
+        check(acc >= gate and np.isfinite(ave_loss), f"eval {name}: pixel accuracy {acc}")
+        check(got == {"upsample_argmax": k1_per_batch * 2, "ce_front_fwd": 4, "ce_front_bwd": 0},
+              f"eval {name}: launches {got}, want {k1_per_batch}/2/0 per batch")
+    # where a bf16 val batch's time goes (launches here are outside the counts)
+    step = make_eval_step(model, loss_fn, num_classes=19, compute_dtype=torch.bfloat16)
+    batch = (images, labels, edges, np.ones(2, np.float32))
+    profile("eval profile bf16 validate batch (2x1024x2048, host arrays)",
+            lambda b: step(*b), batch, card)
+    del model, step
+
+    spec_s = M.spec_for("pidnet_s", 19, augment=False)
+    folded = fold_state_dict(sd, spec_s)
+    serve = engine.make_inference_classmap(cfg, spec_s, folded, folded=True,
+                                           compute_dtype=torch.bfloat16)
+    preds = []
+
+    def recording_infer(x):
+        out = serve(x)
+        preds.append(out.cpu().numpy())
+        return out
+
+    frames = [(images[i:i + 1], labels[i:i + 1], None, None, [names[i]]) for i in range(2)]
+    for attempt in range(2):
+        preds.clear()
+        before = ua.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        miou, _, pixel_acc, _ = engine.testval(cfg, None, frames, recording_infer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts["upsample_argmax"] += ua.launches - before
+        want = numpy_scores([p[0] for p in preds], list(labels))
+        check(ua.launches - before == 2, "testval: upsample_argmax launches")
+        check((miou, pixel_acc) == want, f"testval: {(miou, pixel_acc)} != numpy {want}")
+    print(f"eval testval folded bf16 class maps: {wall * 1e3 / 2:.1f} ms/frame (host input, "
+          f"host matrix) [{card}]; mIoU vs goldens {miou:.6f}, pixel acc {pixel_acc:.6f}, equal "
+          f"to numpy's on the same maps")
+
+    # the JAX package's TTA on this frame with these weights (folded bf16, on
+    # its TPU; scripts/tta_bench.py, docs/DESIGN.md round 5) changed 13.7% of
+    # the single-scale class map with flip alone, 18.9% with 6 scales + flip
+    x0 = torch.from_numpy(images[:1]).cuda()
+    maps = {}
+    for tag, kw, jax_agree in (("single-scale", {}, None), ("flip", dict(flip_test=True), 0.863),
+                               ("6-scale+flip", dict(multi_scale=True, flip_test=True), 0.811)):
+        cfg_tta = engine.config(ignore_label=255, **kw)
+        tta = engine.make_ms_flip_inference(cfg_tta, spec_s, folded, folded=True,
+                                            compute_dtype=torch.bfloat16)
+        tta(x0)
+        if cfg_tta.TEST.MULTI_SCALE:
+            profile("eval profile TTA 6-scale+flip frame", tta, x0, card, steps=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs = tta(x0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        finite = bool(torch.isfinite(probs).all())
+        maps[tag] = probs.argmax(-1)[0].cpu().numpy()
+        del probs
+        goldens_agree = float((maps[tag] == labels[0]).mean())
+        agree = float((maps[tag] == maps["single-scale"]).mean())
+        scales = cfg_tta.TEST.SCALE_LIST if cfg_tta.TEST.MULTI_SCALE else [1.0]
+        print(f"eval TTA folded bf16 {tag} (scales {scales}, crop {cfg_tta.TEST.IMAGE_SIZE}): "
+              f"{wall * 1e3:.1f} ms/frame [{card}]; finite "
+              f"{finite}, argmax vs goldens {goldens_agree:.6f}, vs single-scale {agree:.6f}"
+              + ("" if jax_agree is None else f" (JAX package {jax_agree:.3f} +- 0.01)"))
+        check(finite, f"TTA {tag}: non-finite values")
+        if jax_agree is not None:
+            check(abs(agree - jax_agree) <= 0.01,
+                  f"TTA {tag}: agreement with single-scale {agree} not within 0.01 of {jax_agree}")
+
+    cfg_id = engine.config(ignore_label=255)
+    p_tta = engine.make_ms_flip_inference(cfg_id, spec_s, folded, folded=True)(x0)
+    p_one = engine.make_inference(cfg_id, spec_s, folded, folded=True)(x0)
+    lg = torch.log(p_tta.double().clamp(1e-30, 1e38))
+    lw = torch.log(p_one.double().clamp(1e-30, 1e38))
+    gap = (lg - lw).abs().max().item()
+    print(f"eval identity TTA (scale 1, no flip) fp32 vs make_inference: max clipped "
+          f"log-probability gap {gap:.3e} (<= 0.01)")
+    check(gap <= 0.01, "identity TTA differs from make_inference")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -555,7 +840,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from pidnet_tpu_torch.ops import _build
     from pidnet_tpu_torch.ops import ce_front as cf
+    from pidnet_tpu_torch.ops import conv3x3 as conv
     from pidnet_tpu_torch.ops import upsample_argmax as ua
+    from pidnet_tpu_torch.utils.timing import card_line
 
     card = card_line()
     print(f"card: {card}")
@@ -569,18 +856,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     k1 = phase_kernels(torch, ua)
     k2, k3 = phase_ce_front(torch, cf)
+    k4 = phase_conv(torch, conv)
+    torch.cuda.empty_cache()
     phase_slice(torch, card)
     served = ua.launches
     counts = phase_train(torch, card)
-    k1["launches"] = served + counts["upsample_argmax"]
-    k2["launches"] = counts["ce_front_fwd"]
-    k3["launches"] = counts["ce_front_bwd"]
+    evals = phase_eval(torch, card)
+    k1["launches"] = served + counts["upsample_argmax"] + evals["upsample_argmax"]
+    k2["launches"] = counts["ce_front_fwd"] + evals["ce_front_fwd"]
+    k3["launches"] = counts["ce_front_bwd"] + evals["ce_front_bwd"]
     print(f"launches on the main paths: upsample_argmax {served} serving + "
-          f"{counts['upsample_argmax']} training, ce_front_fwd {k2['launches']}, "
-          f"ce_front_bwd {k3['launches']}")
+          f"{counts['upsample_argmax']} training + {evals['upsample_argmax']} eval, "
+          f"ce_front_fwd {counts['ce_front_fwd']} training + {evals['ce_front_fwd']} eval, "
+          f"ce_front_bwd {counts['ce_front_bwd']} training + {evals['ce_front_bwd']} eval, "
+          f"conv3x3 {k4['launches']} conv_ab")
 
     print(card)
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

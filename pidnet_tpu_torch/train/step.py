@@ -1,6 +1,6 @@
-"""The one-device training step (counterpart of pidnet_tpu/train/step.py
-without its data parallelism, `accum_steps`, `sync_bn`, batch padding or
-eval step).
+"""The one-device training and evaluation steps (counterpart of
+pidnet_tpu/train/step.py without its data parallelism, `accum_steps`,
+`sync_bn` or batch padding).
 
 The update is the JAX package's `_sgd`, torch.optim.SGD's semantics as the
 reference configures it (tools/train.py:139-148): weight decay folded into
@@ -16,6 +16,10 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+
+from pidnet_tpu_torch.metrics import confusion_matrix
+from pidnet_tpu_torch.ops.resize import resize_bilinear
+from pidnet_tpu_torch.ops.upsample_argmax import upsample_argmax
 
 
 @dataclass
@@ -73,5 +77,61 @@ def make_train_step(ts: TrainState, loss_fn, *, momentum: float = 0.9,
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         _sgd(params, grads, bufs, lr, momentum, weight_decay, nesterov)
         return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_eval_step(model: nn.Module, loss_fn, *, num_classes: int,
+                   compute_dtype: torch.dtype | None = None):
+    """`step(images, labels, edges, sample_mask) -> (metrics, cms)`: the
+    validation step of the JAX package's `make_eval_step` on one device.
+
+    `model` is an unfolded eval-mode model (`build(..., train=False)`): BN
+    uses its running statistics, and with `compute_dtype` the images are
+    cast to it so every conv runs in it on fp32 weights. The inputs (host
+    arrays or tensors; images NHWC, labels (N,H,W), edges (N,H,W),
+    sample_mask (N,) in {0,1}) go to the model's device. FullLoss masks the
+    padding samples; `metrics` holds its 0-dim tensors scaled by w /
+    max(w, 1), as the JAX step's weighted mean over shards gives on one
+    shard, and `metrics["weight"]` is w, the real-sample count. `cms` is
+    (num_segmentation_outputs, C, C) int64, one confusion matrix per head
+    but the boundary head, with the masked samples' labels set to ignore:
+    through the fused upsample+argmax (ops/upsample_argmax.py, the CUDA
+    kernel on the card) when `compute_dtype` is bf16, else through the fp32
+    bilinear resize and argmax. It runs under `torch.inference_mode()`, so
+    no backward kernel runs.
+
+    Not ported: the mesh and its psums (data parallelism is a later slice)
+    and the batch padding to a multiple of 8 (`pad_batch`), a TPU sublane
+    fill that the port leaves out by design."""
+    dev = next(model.parameters()).device
+    ignore = loss_fn.ignore_label
+    align = loss_fn.align_corners
+
+    def tensor(a, dtype):
+        a = a if torch.is_tensor(a) else torch.as_tensor(a)
+        return a.to(dev, dtype)
+
+    @torch.inference_mode()
+    def step(images, labels, edges, sample_mask):
+        model.eval()
+        images, edges = tensor(images, torch.float32), tensor(edges, torch.float32)
+        labels, mask = tensor(labels, torch.int32), tensor(sample_mask, torch.float32)
+        x = images if compute_dtype is None else images.to(compute_dtype)
+        outputs = model(x)
+        _, metrics = loss_fn(outputs, labels, edges, sample_mask=mask)
+        w = mask.sum()
+        metrics = {k: v * w / torch.clamp(w, min=1.0) for k, v in metrics.items()}
+        metrics["weight"] = w
+        labels = torch.where(mask.reshape(-1, 1, 1) > 0, labels, ignore)
+        hw = (labels.shape[1], labels.shape[2])
+        cms = []
+        for o in outputs[:-1]:
+            if compute_dtype == torch.bfloat16:
+                seg = upsample_argmax(o.contiguous(), hw, align)
+            else:
+                seg = resize_bilinear(o, hw, align)
+            cms.append(confusion_matrix(seg, labels, num_classes, ignore))
+        return metrics, torch.stack(cms)
 
     return step

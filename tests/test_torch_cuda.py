@@ -1,6 +1,6 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-the served path's launch count and the train step's. Every test here is marked `cuda` and
-skips without a GPU. The file imports neither JAX nor pidnet_tpu, so it
+and the launch counts of the served path, the train step and the eval
+step. Every test here is marked `cuda` and skips without a GPU. The file imports neither JAX nor pidnet_tpu, so it
 also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -18,8 +18,9 @@ from pidnet_tpu_torch.convert.weights import load_npz
 from pidnet_tpu_torch.losses.criterion import FullLoss
 from pidnet_tpu_torch.models import pidnet as M
 from pidnet_tpu_torch.ops import ce_front as TC
+from pidnet_tpu_torch.ops import conv3x3 as TK
 from pidnet_tpu_torch.ops import upsample_argmax as TU
-from pidnet_tpu_torch.train.step import TrainState, make_train_step
+from pidnet_tpu_torch.train.step import TrainState, make_eval_step, make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -168,3 +169,78 @@ def test_train_step_launches_the_kernels(cuda_device):
         before[0] + 1, before[1] + 2, before[2] + 2)
     assert np.isfinite(float(metrics["loss"]))
     assert not torch.equal(w0, ts.params()["conv1.0.weight"])
+
+
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("epilogue", ["none", "bias", "relu", "bias+relu", "stats",
+                                      "bias+relu+stats"])
+@pytest.mark.parametrize("shape", [(1, 16, 24, 128, 128), (2, 8, 8, 256, 128),
+                                   (1, 3, 5, 64, 256)])
+def test_conv3x3_kernel_matches_plain(cuda_device, out_dtype, epilogue, shape):
+    """y within atol 0.0079 / rtol 0.01 in bf16 (one ulp; the two sum in
+    other orders) and 1e-4 / 1e-4 in fp32; the statistics within 2e-5 of
+    the sums of |y| and y^2 of the kernel's own fp32 output (fp32 atomics
+    reorder them from run to run); one launch counted per call."""
+    n, h, w, cin, cout = shape
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((n, h, w, cin), dtype=np.float32)).to(cuda_device)
+    wt = torch.from_numpy(rng.standard_normal((3, 3, cin, cout), dtype=np.float32) * 0.02)
+    wt = wt.to(cuda_device)
+    b = torch.from_numpy(rng.standard_normal(cout, dtype=np.float32)).to(cuda_device)
+    kw = dict(b=b if "bias" in epilogue else None, relu="relu" in epilogue,
+              stats="stats" in epilogue)
+    dtype = getattr(torch, out_dtype)
+    before = TK.launches
+    got = TK.conv3x3(x, wt, out_dtype=dtype, **kw)
+    assert TK.launches == before + 1
+    want = TK.conv3x3_plain(x, wt, out_dtype=dtype, **kw)
+    if kw["stats"]:
+        (got, st), (want, _) = got, want
+        y32 = TK.conv3x3(x, wt, kw["b"], relu=kw["relu"], out_dtype=torch.float32)
+        y32 = y32.double().reshape(-1, cout)
+        own = torch.stack([y32.sum(0), (y32 * y32).sum(0)])
+        scale = torch.stack([y32.abs().sum(0), (y32 * y32).sum(0)])
+        assert st.dtype == torch.float32 and tuple(st.shape) == (2, cout)
+        assert bool(((st.double() - own).abs() <= 2e-5 * scale + 1e-30).all())
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape == (n, h, w, cout)
+    atol, rtol = (0.0079, 0.01) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_conv3x3_wrapper_rejects_bad_input(cuda_device):
+    x = torch.zeros((1, 4, 4, 96), device=cuda_device, dtype=torch.bfloat16)
+    before = TK.launches
+    with pytest.raises(ValueError, match="multiple of 64"):
+        TK.conv3x3(x, torch.zeros((3, 3, 96, 128), device=cuda_device))
+    x = torch.zeros((1, 4, 4, 128), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        TK.conv3x3(x, torch.zeros((3, 3, 128, 64), device=cuda_device))
+    with pytest.raises(ValueError, match="w"):
+        TK.conv3x3(x, torch.zeros((1, 1, 128, 128), device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        TK.conv3x3(x.permute(0, 2, 1, 3), torch.zeros((3, 3, 128, 128), device=cuda_device))
+    with pytest.raises(TypeError, match="out_dtype"):
+        TK.conv3x3(x, torch.zeros((3, 3, 128, 128), device=cuda_device), out_dtype=torch.half)
+    assert TK.launches == before
+
+
+@pytest.mark.parametrize("dtype,k1", [(None, 1), (torch.bfloat16, 3)])
+def test_eval_step_launches_the_kernels(cuda_device, dtype, k1):
+    """One eval batch of PIDNet-S on the card: K1 once for the accuracy and,
+    in bf16, once per segmentation head's matrix; K2 twice; K3 never; the
+    matrices count the real samples' pixels."""
+    spec = M.spec_for("pidnet_s", 19, augment=True)
+    model = M.build(spec, M.init(spec, torch.Generator().manual_seed(0)), device=cuda_device)
+    step = make_eval_step(model, FullLoss(ignore_label=255, ohem_kept=1000), num_classes=19,
+                          compute_dtype=dtype)
+    rng = np.random.default_rng(0)
+    img = rng.standard_normal((2, 128, 128, 3)).astype(np.float32)
+    lab = rng.integers(0, 19, (2, 128, 128)).astype(np.int32)
+    edge = (rng.random((2, 128, 128)) < 0.1).astype(np.float32)
+    before = (TU.launches, TC.fwd_launches, TC.bwd_launches)
+    metrics, cms = step(img, lab, edge, np.array([1.0, 0.0], np.float32))
+    assert (TU.launches, TC.fwd_launches, TC.bwd_launches) == (
+        before[0] + k1, before[1] + 2, before[2])
+    assert float(metrics["weight"]) == 1.0 and np.isfinite(float(metrics["loss"]))
+    assert cms.device.type == "cuda" and [int(c.sum()) for c in cms] == [128 * 128] * 2
