@@ -34,14 +34,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    0.9999). Then the train step's speed (tools/speed.py --train) and peak
    memory;
 5. conv: the fused 3x3 conv (K4) against its plain version at the three
-   A/B shapes of tools/conv_ab.py and two small ones (W = 24 among them),
-   with every epilogue (none, bias, ReLU, bias+ReLU, statistics) and bf16
-   and fp32 outputs: y within one bf16 ulp (atol 0.0079, rtol 0.01; fp32
-   within 1e-4 + 1e-4|y|), the statistics within 2e-5 of the sums of the
-   kernel's own fp32 output; then the A/B entry point
-   (tools/conv_ab.run: K4 against cuDNN, three modes per shape), whose K4
-   launches must all be counted, and the plain version's time and the bound
-   at each A/B shape;
+   A/B shapes of tools/conv_ab.py and four small ones (W = 24, pixel tiles
+   straddling the bottom and right edges, W = 200 among them), each with
+   its tile plan, with every epilogue (none, bias, ReLU, bias+ReLU,
+   statistics) and bf16 and fp32 outputs: y within one bf16 ulp (atol
+   0.0079, rtol 0.01; fp32 within 1e-4 + 1e-4|y|), the statistics within
+   2e-5 of the sums of the kernel's own fp32 output; then the A/B entry
+   point (tools/conv_ab.run: K4 against cuDNN, three modes per shape),
+   whose K4 launches must all be counted, and the plain version's time,
+   the bound, and K4's device time under torch.profiler beside conv_ab's
+   event window and the host's time to enqueue a call at each A/B shape;
 6. eval: PIDNet-S augment with the train2k weights, unfolded, eval mode,
    on the two sample frames with the frozen fp32 goldens as labels (edges:
    a 4-neighbour label change of the goldens, a cv2-free stand-in for the
@@ -116,9 +118,10 @@ CE_CASES = [
 CE_MAIN = CE_CASES[0]
 
 # (N, H, W, C) of the fused 3x3 conv: the A/B shapes of tools/conv_ab.py,
-# then a width that is no multiple of a tile and a small batch
+# then a width that is no multiple of a tile, a small batch, pixel tiles
+# that straddle both the bottom and the right edge, and a width above 128
 CONV_CASES = [(8, 128, 128, 128), (8, 32, 32, 256), (8, 16, 16, 512), (1, 16, 24, 128),
-              (2, 32, 32, 128)]
+              (2, 32, 32, 128), (3, 13, 40, 128), (1, 5, 200, 128)]
 CONV_EPILOGUES = [dict(), dict(bias=True), dict(relu=True), dict(bias=True, relu=True),
                   dict(stats=True), dict(bias=True, relu=True, stats=True)]
 BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
@@ -334,6 +337,30 @@ def conv_bound_ms(shape) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def conv_device_ms(torch, fn, calls: int = 20) -> tuple[float, float]:
+    """(K4's device ms per call, device ms per call of every kernel the call
+    launches) of `fn` over `calls` profiled calls (tools/speed.device_breakdown)."""
+    from pidnet_tpu_torch.tools.speed import device_breakdown
+
+    _, busy, rows = device_breakdown(lambda _: fn(), None, torch.device("cuda"), calls, top=None)
+    return sum(ms for name, ms, _ in rows if "conv3x3_kernel" in name), busy
+
+
+def host_ms(torch, fn, calls: int = 20, windows: int = 5) -> float:
+    """Host ms per call of `fn`, median over `windows` windows of `calls`
+    calls, each started on an idle card and read on the host clock before
+    the sync: what enqueueing a call costs the host."""
+    times = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def phase_conv(torch, conv) -> dict:
     """K4 against its plain version, then its A/B entry point; returns its
     JSON entry with the launches that tools/conv_ab made."""
@@ -344,6 +371,10 @@ def phase_conv(torch, conv) -> dict:
     max_abs_err = 0.0
     for shape in CONV_CASES:
         n, h, w, c = shape
+        th, tw, bn, stages, grid = conv._plan(n, h, w, c, c)
+        print(f"conv3x3 plan {shape}: TH {th}, TW {tw}, BN {bn}, STAGES {stages}, blocks "
+              f"{grid[0]} x {grid[1]} = {grid[0] * grid[1]}, shared memory "
+              f"{conv.smem_bytes(bn)} bytes per block")
         x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
         wt = torch.from_numpy(rng.standard_normal((3, 3, c, c), dtype=np.float32) * 0.02).cuda()
         b = torch.from_numpy(rng.standard_normal(c, dtype=np.float32)).cuda()
@@ -384,17 +415,35 @@ def phase_conv(torch, conv) -> dict:
     launches = conv.launches
     check(launches == calls > 0, f"conv3x3 launched {launches} times for {calls} calls")
     print(f"conv_ab: conv3x3 launches {launches} for {calls} calls through tools/conv_ab")
-    plain_ms = {}
+    plain_ms, device, host, bare = {}, {}, {}, {}
     for name, n, h, w, c in conv_ab.SHAPES:
-        x, wt, _ = conv_ab.inputs(n, h, w, c, "cuda")
-        plain_ms[(n, h, w, c)] = time_ms(lambda: conv.conv3x3_plain(x, wt), batches=5,
-                                         per_batch=5)
+        x, wt, b = conv_ab.inputs(n, h, w, c, "cuda")
+        shape = (n, h, w, c)
+        plain_ms[shape] = time_ms(lambda: conv.conv3x3_plain(x, wt), batches=5, per_batch=5)
+        for mode in conv_ab.MODES:
+            fn = conv_ab.kernel_fn(mode, x, wt, b)
+            device[shape, mode] = conv_device_ms(torch, fn)
+            host[shape, mode] = host_ms(torch, fn)
+        # the library's launch function alone, on a preallocated output
+        y = torch.empty((n, h, w, c), dtype=torch.bfloat16, device="cuda")
+        th, tw, bn, stages, (gx, gy) = conv._plan(n, h, w, c, c)
+        args = (0, x.data_ptr(), wt.data_ptr(), None, y.data_ptr(), None, n, h, w, c, c, 0, th,
+                tw, bn, stages, gx, gy, torch.cuda.current_stream().cuda_stream)
+        bare[shape] = host_ms(torch, lambda: conv._kernel_fn(torch.bfloat16)(*args))
     for row in rows:
         name, shape, mode, ms, library_ms, _, _ = row
         bound_ms, bound_by = conv_bound_ms(shape)
+        k4_ms, call_ms = device[shape, mode]
         print(f"{conv_ab.format_row(row, torch.device('cuda'))}; plain version "
               f"{plain_ms[shape]:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), kernel at "
               f"{bound_ms / ms:.1%} of it, cuDNN at {bound_ms / library_ms:.1%}")
+        print(f"conv3x3 {shape} {mode} on the device alone (torch.profiler, 20 calls): kernel "
+              f"{k4_ms:.4f} ms, every kernel of the call {call_ms:.4f} ms, conv_ab's event window "
+              f"{ms:.4f} ms ({ms / call_ms - 1:+.1%}"
+              f"{', host-bound' if ms > 1.1 * call_ms else ''}); host per call "
+              f"{host[shape, mode]:.4f} ms through conv3x3, {bare[shape]:.4f} ms through the "
+              f"bare library call")
+    print("conv3x3: no weight rearrangement per call, the kernel reads w (3,3,Cin,Cout) as it is")
     name, shape, mode, ms, library_ms, _, _ = rows[0]
     bound_ms, bound_by = conv_bound_ms(shape)
     return {

@@ -175,12 +175,15 @@ def test_train_step_launches_the_kernels(cuda_device):
 @pytest.mark.parametrize("epilogue", ["none", "bias", "relu", "bias+relu", "stats",
                                       "bias+relu+stats"])
 @pytest.mark.parametrize("shape", [(1, 16, 24, 128, 128), (2, 8, 8, 256, 128),
-                                   (1, 3, 5, 64, 256)])
+                                   (1, 3, 5, 64, 256), (3, 13, 40, 128, 128),
+                                   (1, 5, 200, 128, 128)])
 def test_conv3x3_kernel_matches_plain(cuda_device, out_dtype, epilogue, shape):
     """y within atol 0.0079 / rtol 0.01 in bf16 (one ulp; the two sum in
     other orders) and 1e-4 / 1e-4 in fp32; the statistics within 2e-5 of
     the sums of |y| and y^2 of the kernel's own fp32 output (fp32 atomics
-    reorder them from run to run); one launch counted per call."""
+    reorder them from run to run); one launch counted per call. The last
+    two shapes have pixel tiles that straddle the bottom and the right edge
+    (W = 40 in tiles of 64 x 2) and column tiles of a W above 128."""
     n, h, w, cin, cout = shape
     rng = np.random.default_rng(9)
     x = torch.from_numpy(rng.standard_normal((n, h, w, cin), dtype=np.float32)).to(cuda_device)
