@@ -13,9 +13,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    shapes among others), and the fused upsample+CE
    forward (K2: w exact, ignored pixels 0, nll within 1e-4) and backward
    (K3: cosine > 0.99999 against autograd of the plain forward, max-abs
-   within 2^-7 of the largest value in bf16, 1e-5 in fp32); each one's
-   time (CUDA events, median), the plain version's, a library call's,
-   and its bound;
+   within 2^-7 of the largest value in bf16, 1e-5 in fp32, and two
+   launches on the same inputs bit-identical; its plan at each shape:
+   band, column tiles, blocks, shared memory); each one's time (CUDA
+   events, median), the plain version's, a library call's, and its bound;
+   K3's device time under torch.profiler beside its event time;
 3. slice: PIDNet-S with the train2k weights, BN folded, serving the two
    sample frames at 1024x2048 in bf16 through
    engine.make_inference_classmap; the kernel's launch counter must rise
@@ -32,7 +34,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    rtol 1e-3; pixel accuracy equal but for pixels whose two best classes
    are within 1e-3; each segmentation head's logits-gradient cosine >
    0.9999). Then the train step's speed (tools/speed.py --train) and peak
-   memory;
+   memory, and a profile of 5 steps: device busy per step and K2's and
+   K3's device time in it;
 5. conv: the fused 3x3 conv (K4) against its plain version at the three
    A/B shapes of tools/conv_ab.py and four small ones (W = 24, pixel tiles
    straddling the bottom and right edges, W = 200 among them), each with
@@ -72,6 +75,7 @@ the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import logging
 import os
@@ -254,18 +258,29 @@ def phase_ce_front(torch, cf) -> tuple[dict, dict]:
     """K2 and K3 against their plain versions; returns their JSON entries."""
     import torch.nn.functional as F
 
+    from pidnet_tpu_torch.ops._build import library
     from pidnet_tpu_torch.utils.timing import time_ms
 
     rng = np.random.default_rng(1)
     err_fwd = err_bwd = 0.0
+    smem_bytes = library("ce_front").ce_bwd_smem_bytes  # the kernel's own layout
+    smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int] * 6, ctypes.c_longlong
     for shape, out_hw in CE_CASES:
         base, labels, cw, g = ce_inputs(torch, rng, shape, out_hw)
         ignored = labels == 255
         for dtype in (torch.bfloat16, torch.float32):
             x = base.to(dtype)
+            plan = cf.backward_plan(*shape, *out_hw, True, x.element_size())
+            own = smem_bytes(shape[3], plan.band, plan.tile, plan.xw, plan.lpp, x.element_size())
+            print(f"ce_front_bwd plan {shape}->{out_hw} {str(dtype)[6:]}: band {plan.band} rows, "
+                  f"{len(plan.cols)} column tile(s) of {plan.tile}, {plan.blocks} blocks of "
+                  f"{plan.threads} threads ({plan.lpp} lane(s) to each of up to {plan.xw} output "
+                  f"columns), shared memory {plan.smem} bytes a block (the kernel's layout: {own})")
+            check(own == plan.smem, "the plan's shared memory differs from the kernel's layout")
             for align in (True, False):
                 nll, w = cf.ce_front_fwd(x, labels, cw, 255, out_hw, align)
                 dl = cf.ce_front_bwd(x, labels, 255, out_hw, align, g)
+                again = cf.ce_front_bwd(x, labels, 255, out_hw, align, g)
                 xr = x.detach().clone().requires_grad_()
                 nll_p, w_p = cf.ce_front_fwd_plain(xr, labels, cw, 255, out_hw, align)
                 (dl_p,) = torch.autograd.grad(nll_p, xr, g)
@@ -273,6 +288,8 @@ def phase_ce_front(torch, cf) -> tuple[dict, dict]:
                 check(nll.shape == w.shape == labels.shape and nll.dtype == w.dtype == torch.float32
                       and dl.shape == x.shape and dl.dtype == dtype,
                       f"ce_front outputs {nll.shape} {w.shape} {dl.shape} {dl.dtype}")
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                same = torch.equal(dl.view(bits), again.view(bits))
                 e_f = (nll - nll_p).abs().max().item()
                 a, b = dl.float().flatten(), dl_p.float().flatten()
                 cos = (a @ b / (a.norm() * b.norm())).item()
@@ -282,11 +299,13 @@ def phase_ce_front(torch, cf) -> tuple[dict, dict]:
                 inert = not nll[ignored].any().item() and not w[ignored].any().item()
                 print(f"kernel ce_front {shape}->{out_hw} {str(dtype)[6:]} align_corners={align}: "
                       f"w exact {torch.equal(w, w_p)}, ignored inert {inert}, nll max err "
-                      f"{e_f:.3e}; dL cos {cos:.8f}, max err {e_b:.3e} (<= {tol_b:.3e})")
+                      f"{e_f:.3e}; dL cos {cos:.8f}, max err {e_b:.3e} (<= {tol_b:.3e}), two "
+                      f"launches bit-identical {same}")
                 check(torch.equal(w, w_p) and inert and e_f <= 1e-4,
                       "ce_front_fwd disagrees with its plain version")
                 check(cos > 0.99999 and e_b <= tol_b,
                       "ce_front_bwd disagrees with autograd of the plain forward")
+                check(same, "two ce_front_bwd launches on the same inputs differ")
 
     shape, out_hw = CE_MAIN
     base, labels, cw, g = ce_inputs(torch, rng, shape, out_hw)
@@ -324,6 +343,13 @@ def phase_ce_front(torch, cf) -> tuple[dict, dict]:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
         })
+    k3_ms, call_ms = kernel_device_ms(torch, lambda: cf.ce_front_bwd(x, labels, 255, out_hw, True, g),
+                                      "ce_bwd_kernel")
+    ms = entries[1]["ms"]
+    print(f"ce_front_bwd {shape}->{out_hw} bf16 on the device alone (torch.profiler, 20 calls): "
+          f"kernel {k3_ms:.4f} ms, every kernel of the call {call_ms:.4f} ms, event window "
+          f"{ms:.4f} ms ({ms / k3_ms - 1:+.1%})")
+    entries[1]["deterministic"] = True  # checked bit for bit at every case above
     return entries[0], entries[1]
 
 
@@ -337,13 +363,14 @@ def conv_bound_ms(shape) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def conv_device_ms(torch, fn, calls: int = 20) -> tuple[float, float]:
-    """(K4's device ms per call, device ms per call of every kernel the call
-    launches) of `fn` over `calls` profiled calls (tools/speed.device_breakdown)."""
+def kernel_device_ms(torch, fn, kernel: str, calls: int = 20) -> tuple[float, float]:
+    """(device ms per call of the kernels whose name holds `kernel`, device
+    ms per call of every kernel the call launches) of `fn` over `calls`
+    profiled calls (tools/speed.device_breakdown)."""
     from pidnet_tpu_torch.tools.speed import device_breakdown
 
     _, busy, rows = device_breakdown(lambda _: fn(), None, torch.device("cuda"), calls, top=None)
-    return sum(ms for name, ms, _ in rows if "conv3x3_kernel" in name), busy
+    return sum(ms for name, ms, _ in rows if kernel in name), busy
 
 
 def host_ms(torch, fn, calls: int = 20, windows: int = 5) -> float:
@@ -422,7 +449,7 @@ def phase_conv(torch, conv) -> dict:
         plain_ms[shape] = time_ms(lambda: conv.conv3x3_plain(x, wt), batches=5, per_batch=5)
         for mode in conv_ab.MODES:
             fn = conv_ab.kernel_fn(mode, x, wt, b)
-            device[shape, mode] = conv_device_ms(torch, fn)
+            device[shape, mode] = kernel_device_ms(torch, fn, "conv3x3_kernel")
             host[shape, mode] = host_ms(torch, fn)
         # the library's launch function alone, on a preallocated output
         y = torch.empty((n, h, w, c), dtype=torch.bfloat16, device="cuda")
@@ -682,6 +709,13 @@ def phase_train(torch, card: str) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"train speed PIDNet-S bf16 6x1024x1024 (tools/speed.py --train): "
           f"{speed.train_line(result)}, peak {peak:.2f} GiB allocated [{card}]")
+    wall, busy, rows = speed.device_breakdown(lambda _: bench_step(*placed, 0.01), None, dev, 5,
+                                              top=None)
+    k2 = sum(ms for name, ms, _ in rows if "ce_fwd_kernel" in name)
+    k3 = sum(ms for name, ms, _ in rows if "ce_bwd_kernel" in name)
+    print(f"train profile over 5 steps (torch.profiler): wall {wall:.2f} ms/step, device busy "
+          f"{busy:.3f} ms/step ({busy / wall:.1%}); K3 ce_bwd_kernel {k3:.4f} ms/step "
+          f"({k3 / busy:.2%} of busy), K2 ce_fwd_kernel {k2:.4f} ms/step [{card}]")
     return counts
 
 

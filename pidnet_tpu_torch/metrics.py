@@ -1,8 +1,9 @@
 """Segmentation metrics (counterpart of pidnet_tpu/metrics.py).
 
 The C x C confusion matrix is one `torch.bincount` over `gt * C + pred` on
-the device, with ignored pixels in one extra bin that is dropped; only the
-small matrix goes to the host, where IoU and accuracy are taken in float64.
+the device, with ignored pixels, and pixels whose label lies outside
+[0, C), in one extra bin that is dropped; only the small matrix goes to the
+host, where IoU and accuracy are taken in float64.
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ def confusion_matrix(logits: torch.Tensor, labels: torch.Tensor, num_classes: in
     """logits (N,H,W,C) (argmax over C) or a class map (N,H,W); labels
     (N,H,W) -> (C,C) int64 counts, rows the label, columns the
     prediction. int64 keeps every count exact, where the JAX package's
-    float32 is exact below 2^24 per cell."""
+    float32 is exact below 2^24 per cell. A label that is the ignore label
+    or lies outside [0, C) is dropped, as the JAX package drops every label
+    >= C; a negative label is dropped too, where JAX's `jnp.bincount` clips
+    its index into cell (0, 0) (the reference's numpy `bincount` raises)."""
     preds = torch.argmax(logits, dim=-1) if logits.dim() == labels.dim() + 1 else logits
     labels = labels.to(device=preds.device, dtype=torch.int64)
-    valid = labels != ignore_label
+    valid = (labels != ignore_label) & (labels >= 0) & (labels < num_classes)
     idx = torch.where(valid, labels * num_classes + preds.to(torch.int64),
                       num_classes * num_classes)
     counts = torch.bincount(idx.reshape(-1), minlength=num_classes * num_classes + 1)

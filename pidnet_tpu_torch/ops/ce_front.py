@@ -21,23 +21,30 @@ gradient.
 (bf16 or fp32 logits, both align_corners modes, any size; fp32 arithmetic)
 and raises on what the kernel does not take; for a CPU tensor it runs the
 plain version, `ce_front_fwd_plain` / `ce_front_bwd_plain`. `fwd_launches`
-and `bwd_launches` count kernel launches.
+and `bwd_launches` count kernel launches. The backward kernel computes the
+adjoint band by band without atomics, so its dL is the same bit for bit
+from run to run; `backward_plan` cuts the work into its blocks.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
+from functools import lru_cache
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from pidnet_tpu_torch.ops.resize import _interp_matrix, interpolate
+from pidnet_tpu_torch.ops.resize import _interp_matrix, interpolate, source_taps
 
 fwd_launches = 0
 bwd_launches = 0
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
-_SMEM_BYTES = 48 * 1024  # the backward's window, without an opt-in
+SMEM_OPT_IN = 232448  # 227 KB: the most shared memory an H100 block can opt in to
+_SMEM_TARGET = 113 * 1024  # two backward blocks an SM
+_MIN_BLOCKS = 2 * 132  # two blocks on each of the H100's SMs
+BWD_THREADS = 256  # the most threads of a backward block (kBwdThreads)
 _fns: dict = {}
 
 
@@ -91,7 +98,7 @@ def _kernel_fn(kind: str, dtype: torch.dtype):
         from pidnet_tpu_torch.ops._build import library
 
         fn = getattr(library("ce_front"), name)
-        n_ints = 8 if kind == "fwd" else 12
+        n_ints = 8 if kind == "fwd" else 13
         n_ptrs = 5 if kind == "fwd" else 4
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -149,52 +156,115 @@ def ce_front_fwd(logits, labels, class_weights, ignore_label: int, out_hw,
     return nll, wmap
 
 
-def _window(in_size: int, out_size: int, tile: int, align_corners: bool) -> int:
-    """Source pixels a run of `tile` output indices can touch: the span of
-    their source indices, one more for the last tap, two for rounding."""
-    if align_corners:
-        scale = (in_size - 1) / (out_size - 1) if out_size > 1 else 0.0
-    else:
-        scale = in_size / out_size
-    return min(in_size, int(math.floor(scale * (tile - 1))) + 4)
+def tap_ranges(in_size: int, out_size: int, tile: int, align_corners: bool) -> np.ndarray:
+    """(tiles, 2) output ranges [a, b) of source tiles [s, s + tile): the
+    output indices with a tap in the tile, i0 in [s, s + tile), or i0 ==
+    s - 1 with lambda1 > 0 (the halo, whose lambda1 lands on s). The
+    kernel's rule (first_reaching in csrc/ce_front.cu) on `source_taps`."""
+    i0, _, l1 = source_taps(in_size, out_size, align_corners)
+    out = []
+    for s in range(0, in_size, tile):
+        reach = np.flatnonzero((i0 >= s) | ((i0 == s - 1) & (l1 > 0)))
+        a = int(reach[0]) if reach.size else out_size
+        out.append((a, int(np.searchsorted(i0, min(s + tile, in_size)))))
+    return np.array(out, np.int64).reshape(-1, 2)
 
 
-def backward_tile(h: int, w: int, c: int, oh: int, ow: int, align_corners: bool):
-    """(tile_h, tile_w, win_h, win_w) of the backward kernel: the largest
-    output tile, from 32x32 down, whose source window of C fp32 values fits
-    in 48 KB of shared memory."""
-    th, tw = 32, 32
-    while True:
-        wh, ww = _window(h, oh, th, align_corners), _window(w, ow, tw, align_corners)
-        if wh * ww * c * 4 <= _SMEM_BYTES:
-            return th, tw, wh, ww
-        if th == tw == 1:
-            raise ValueError(f"ce_front_bwd: {c} classes do not fit the shared-memory window")
-        if th >= tw:
-            th //= 2
-        else:
-            tw //= 2
+def backward_smem_bytes(c: int, band: int, tile: int, xw: int, lpp: int, itemsize: int) -> int:
+    """Shared memory of one backward block (BwdLayout in csrc/ce_front.cu):
+    the staged (band+2) x (tile+2) logits, each pixel's classes padded to
+    lpp slices of `class_slice` classes; the fp32 H-adjoint sums, band x xw
+    x (C|1); each output column's lambda1; the columns' output ranges."""
+    stage = -(-(band + 2) * (tile + 2) * lpp * class_slice(c, lpp) * itemsize // 16) * 16
+    sums = -(-band * xw * (c | 1) * 4 // 16) * 16
+    return stage + sums + 4 * (xw + tile + 2)
+
+
+def class_slice(c: int, lpp: int) -> int:
+    """The classes of one lane: ceil(C / lpp) rounded up to 4."""
+    return (-(-c // lpp) + 3) // 4 * 4
+
+
+class BackwardPlan(NamedTuple):
+    band: int  # BH, source rows of a block
+    tile: int  # BW, source columns of a block
+    lpp: int  # lanes that share a pixel, each with a slice of its classes
+    rows: np.ndarray  # (bands, 2) output rows [a, b) each band walks
+    cols: np.ndarray  # (tiles, 2) output columns [a, b) each tile walks
+    xw: int  # output columns a block holds: the widest tile's and two more
+    threads: int
+    smem: int  # shared-memory bytes a block
+    blocks: int
+
+
+@lru_cache(maxsize=64)
+def backward_plan(n: int, h: int, w: int, c: int, oh: int, ow: int, align_corners: bool,
+                  itemsize: int) -> BackwardPlan:
+    """The backward kernel's blocks: one per image, band of BH source rows
+    and tile of BW source columns; lpp lanes to each of the tile's output
+    columns (the fewest, a power of two, that hold C in slices of at most
+    32 classes). BW is the widest tile whose output columns, and two more
+    (the device's float32 source index may round by one ulp the other way
+    at a tile's edge), fit 256 threads, then evened out over the tiles. BH
+    is the largest of 8, 4, 2 whose block fits in 113 KB of shared memory
+    (two blocks an SM) and which still gives two blocks to each of the
+    card's 132 SMs, else 1."""
+    if c > 32 * 32:
+        raise ValueError(f"ce_front_bwd: {c} classes, more than 1024")
+    lpp = 1
+    while -(-c // lpp) > 32:
+        lpp *= 2
+    columns = BWD_THREADS // lpp
+
+    def widest(tile):
+        cols = tap_ranges(w, ow, tile, align_corners)
+        return cols, int((cols[:, 1] - cols[:, 0]).max()) + 2
+
+    lo, hi = 1, w
+    if widest(1)[1] > columns:
+        raise ValueError(f"ce_front_bwd: one source column of {w} spans more than {columns - 2} "
+                         f"of {ow} output columns")
+    while lo < hi:  # the widest tile that fits
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if widest(mid)[1] <= columns else (lo, mid - 1)
+    tile = -(-w // -(-w // lo))
+    cols, xw = widest(tile)
+    band = 1
+    for cand in (8, 4, 2):
+        if (backward_smem_bytes(c, cand, tile, xw, lpp, itemsize) <= _SMEM_TARGET
+                and n * -(-h // cand) * len(cols) >= _MIN_BLOCKS):
+            band = cand
+            break
+    smem = backward_smem_bytes(c, band, tile, xw, lpp, itemsize)
+    if smem > SMEM_OPT_IN:
+        raise ValueError(f"ce_front_bwd: a block needs {smem} bytes of shared memory")
+    rows = tap_ranges(h, oh, band, align_corners)
+    threads = -(-xw * lpp // 32) * 32
+    return BackwardPlan(band, tile, lpp, rows, cols, xw, threads, smem,
+                        n * len(rows) * len(cols))
 
 
 def ce_front_bwd(logits, labels, ignore_label: int, out_hw, align_corners: bool, g):
     """dL (N,h,w,C) in the logits' dtype from the nll map's gradient g
     (N,OH,OW). On a CUDA tensor this launches the backward kernel, which
-    accumulates in fp32; on a CPU tensor it runs `ce_front_bwd_plain`."""
+    sums in fp32 in a fixed order and writes each element of dL once; on a
+    CPU tensor it runs `ce_front_bwd_plain`."""
     global bwd_launches
     if logits.device.type == "cpu":
         return ce_front_bwd_plain(logits, labels, ignore_label, out_hw, align_corners, g)
     n, h, w, c, oh, ow = _check("ce_front_bwd", logits, labels, out_hw, g)
-    th, tw, wh, ww = backward_tile(h, w, c, oh, ow, align_corners)
+    plan = backward_plan(n, h, w, c, oh, ow, bool(align_corners), logits.element_size())
     fn = _kernel_fn("bwd", logits.dtype)
     with torch.cuda.device(logits.device):
-        dl = torch.zeros((n, h, w, c), dtype=torch.float32, device=logits.device)
+        dl = torch.empty_like(logits)
         stream = torch.cuda.current_stream(logits.device).cuda_stream
         err = fn(logits.data_ptr(), labels.data_ptr(), g.data_ptr(), dl.data_ptr(), n, h, w, c,
-                 oh, ow, int(ignore_label), int(bool(align_corners)), th, tw, wh, ww, stream)
+                 oh, ow, int(ignore_label), int(bool(align_corners)), plan.band, plan.tile,
+                 plan.xw, plan.lpp, plan.threads, stream)
     if err != 0:
         raise RuntimeError(f"ce_front_bwd kernel launch failed: cudaError {err}")
     bwd_launches += 1
-    return dl.to(logits.dtype)
+    return dl
 
 
 class _CEFront(torch.autograd.Function):

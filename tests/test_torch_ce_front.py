@@ -12,8 +12,10 @@ import jax
 import jax.numpy as jnp
 
 from pidnet_tpu.ops import ce_front as JC
+from pidnet_tpu_torch.ops import _build
 from pidnet_tpu_torch.ops import ce_front as TC
-from pidnet_tpu_torch.ops.resize import source_taps
+from pidnet_tpu_torch.ops.resize import _interp_matrix
+from pidnet_tpu_torch.tools import ce_bwd_ablate
 
 torch.set_num_threads(2)
 
@@ -140,14 +142,55 @@ def test_cpu_runs_the_plain_versions_and_other_devices_raise():
                                          ((128, 128), (128, 128), 19),
                                          ((16, 24), (120, 96), 11),
                                          ((64, 64), (16, 16), 19),
-                                         ((5, 7), (1, 1), 3)])
-def test_backward_window_holds_every_tap_of_its_tile(hw, out_hw, c, align):
-    """The backward kernel's shared-memory window (backward_tile) covers
-    the source taps of every output tile, and fits in 48 KB."""
-    th, tw, wh, ww = TC.backward_tile(*hw, c, *out_hw, align)
-    assert wh * ww * c * 4 <= 48 * 1024
-    for size, out, tile, win in ((hw[0], out_hw[0], th, wh), (hw[1], out_hw[1], tw, ww)):
-        i0, i1, _ = source_taps(size, out, align)
-        for start in range(0, out, tile):
-            span = i1[start:start + tile].max() - i0[start] + 1
-            assert span <= win, (start, span, win)
+                                         ((5, 7), (1, 1), 3),
+                                         ((16, 512), (128, 4096), 19)])
+def test_backward_plan_counts_every_tap_once(hw, out_hw, c, align):
+    """The backward kernel's decomposition (backward_plan), walked in
+    torch on the CPU: each band of source rows and tile of source columns
+    adds, over its output rows and columns, only the taps inside the band
+    and the tile, and writes its part of dL once. Assembled, dL equals
+    ce_front_bwd_plain within 1e-5 of its largest value, so every tap is
+    counted exactly once, halo rows and columns included; every row and
+    column a block walks has a tap in its band or tile; each block's
+    shared memory fits the 227 KB opt-in. The last shape forces column
+    tiles."""
+    (h, w), (oh, ow) = hw, out_hw
+    plan = TC.backward_plan(1, h, w, c, oh, ow, align, 2)
+    assert plan.smem <= TC.SMEM_OPT_IN
+    assert plan.blocks == len(plan.rows) * len(plan.cols)
+    assert (plan.cols[:, 1] - plan.cols[:, 0]).max() + 2 == plan.xw
+    logits, labels, _ = _case((1, h, w, c), out_hw)
+    g = torch.from_numpy(np.random.default_rng(2).random((1, oh, ow)).astype(np.float32))
+    x, lab = torch.from_numpy(logits), torch.from_numpy(labels).long()
+    want = TC.ce_front_bwd_plain(x, lab, 255, out_hw, align, g)[0]
+
+    p = torch.softmax(TC._z(x, out_hw, align), dim=-1)[0]
+    counted = (lab[0] != 255) & (lab[0] >= 0) & (lab[0] < c)
+    onehot = torch.nn.functional.one_hot(torch.where(counted, lab[0], 0), c).float()
+    dz = torch.where(counted, g[0], 0.0)[..., None] * (p - onehot)
+    a = torch.from_numpy(_interp_matrix(h, oh, align))
+    b = torch.from_numpy(_interp_matrix(w, ow, align))
+    got = torch.zeros((h, w, c))
+    writes = torch.zeros((h, w), dtype=torch.int64)
+    for i0, (ya, yb) in zip(range(0, h, plan.band), plan.rows):
+        i1 = min(i0 + plan.band, h)
+        a_band = a[ya:yb, i0:i1]
+        assert (a_band != 0).any(dim=1).all()
+        for j0, (xa, xb) in zip(range(0, w, plan.tile), plan.cols):
+            j1 = min(j0 + plan.tile, w)
+            b_tile = b[xa:xb, j0:j1]
+            assert (b_tile != 0).any(dim=1).all()
+            got[i0:i1, j0:j1] = torch.einsum("yi,yxc,xj->ijc", a_band, dz[ya:yb, xa:xb], b_tile)
+            writes[i0:i1, j0:j1] += 1
+    assert bool((writes == 1).all())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("name", sorted(ce_bwd_ablate.VARIANTS))
+def test_ce_bwd_ablate_edits_match_the_kernel_source(name):
+    """Each ablation of tools/ce_bwd_ablate.py edits the backward kernel's
+    current source where it means to (each edit matches exactly once), and
+    only the full variant is the source itself."""
+    src = ce_bwd_ablate.variant_source(name)
+    assert (src == (_build.CSRC / "ce_front.cu").read_text()) == (name == "full")
