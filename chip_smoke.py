@@ -13,11 +13,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    shapes among others), and the fused upsample+CE
    forward (K2: w exact, ignored pixels 0, nll within 1e-4) and backward
    (K3: cosine > 0.99999 against autograd of the plain forward, max-abs
-   within 2^-7 of the largest value in bf16, 1e-5 in fp32, and two
-   launches on the same inputs bit-identical; its plan at each shape:
-   band, column tiles, blocks, shared memory); each one's time (CUDA
-   events, median), the plain version's, a library call's, and its bound;
-   K3's device time under torch.profiler beside its event time;
+   within 2^-7 of the largest value in bf16, 1e-5 in fp32), each with two
+   launches on the same inputs bit-identical and its plan at each shape
+   (bands, tiles, blocks, shared memory, cross-checked against the
+   kernel's own layout); each one's time (CUDA events, median), the plain
+   version's, a library call's, and its bound; K1's, K2's and K3's device
+   time under torch.profiler beside their event times, and K2's time at
+   the eval shape;
 3. slice: PIDNet-S with the train2k weights, BN folded, serving the two
    sample frames at 1024x2048 in bf16 through
    engine.make_inference_classmap; the kernel's launch counter must rise
@@ -113,13 +115,17 @@ MAIN_CASE = KERNEL_CASES[0]
 TIMED_REQUESTS = 20
 
 # (N, h, w, C) logits -> (oh, ow) for the loss front: the training main
-# path (batch 6 of 1024x1024 crops), CamVid's 720x960, an identity size
+# path (batch 6 of 1024x1024 crops), the eval path (a val batch of two
+# 1024x2048 frames), CamVid's 720x960, an identity size, 100 classes (four
+# lanes a pixel)
 CE_CASES = [
     ((6, 128, 128, 19), (1024, 1024)),
+    ((2, 128, 256, 19), (1024, 2048)),
     ((2, 90, 120, 11), (720, 960)),
     ((1, 128, 128, 19), (128, 128)),
+    ((1, 16, 16, 100), (128, 128)),
 ]
-CE_MAIN = CE_CASES[0]
+CE_MAIN, CE_EVAL = CE_CASES[0], CE_CASES[1]
 
 # (N, H, W, C) of the fused 3x3 conv: the A/B shapes of tools/conv_ab.py,
 # then a width that is no multiple of a tile, a small batch, pixel tiles
@@ -203,6 +209,11 @@ def phase_kernels(torch, ua) -> dict:
     print(f"kernel upsample_argmax {shape}->{out_hw} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"F.interpolate+argmax {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
           f"{bound_ms / ms:.1%} of bound")
+    k1_ms, call_ms = kernel_device_ms(torch, lambda: ua.upsample_argmax(x, out_hw, True),
+                                      "upsample_argmax_kernel")
+    print(f"upsample_argmax {shape}->{out_hw} bf16 on the device alone (torch.profiler, 20 "
+          f"calls): kernel {k1_ms:.4f} ms, every kernel of the call {call_ms:.4f} ms, event "
+          f"window {ms:.4f} ms ({ms / k1_ms - 1:+.1%})")
     return {
         "name": "upsample_argmax", "route": "cuda",
         "source": "pidnet_tpu_torch/csrc/upsample_argmax.cu",
@@ -263,13 +274,23 @@ def phase_ce_front(torch, cf) -> tuple[dict, dict]:
 
     rng = np.random.default_rng(1)
     err_fwd = err_bwd = 0.0
-    smem_bytes = library("ce_front").ce_bwd_smem_bytes  # the kernel's own layout
+    smem_bytes = library("ce_front").ce_bwd_smem_bytes  # the kernels' own layouts
     smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int] * 6, ctypes.c_longlong
+    fwd_smem_bytes = library("ce_front").ce_fwd_smem_bytes
+    fwd_smem_bytes.argtypes, fwd_smem_bytes.restype = [ctypes.c_int] * 4, ctypes.c_longlong
     for shape, out_hw in CE_CASES:
         base, labels, cw, g = ce_inputs(torch, rng, shape, out_hw)
         ignored = labels == 255
         for dtype in (torch.bfloat16, torch.float32):
             x = base.to(dtype)
+            fp = cf.forward_plan(*shape, *out_hw, True, x.element_size())
+            own = fwd_smem_bytes(shape[3], fp.window, fp.lpp, x.element_size())
+            print(f"ce_front_fwd plan {shape}->{out_hw} {str(dtype)[6:]}: {len(fp.rows)} band(s) "
+                  f"of {fp.band} output rows, {len(fp.cols)} tile(s) of {fp.tile} output columns, "
+                  f"{fp.blocks} blocks of {fp.threads} threads ({fp.lpp} lane(s) a pixel), window "
+                  f"of {fp.window} source pixels, shared memory {fp.smem} bytes a block (the "
+                  f"kernel's layout: {own})")
+            check(own == fp.smem, "the forward plan's shared memory differs from the kernel's")
             plan = cf.backward_plan(*shape, *out_hw, True, x.element_size())
             own = smem_bytes(shape[3], plan.band, plan.tile, plan.xw, plan.lpp, x.element_size())
             print(f"ce_front_bwd plan {shape}->{out_hw} {str(dtype)[6:]}: band {plan.band} rows, "
@@ -279,6 +300,7 @@ def phase_ce_front(torch, cf) -> tuple[dict, dict]:
             check(own == plan.smem, "the plan's shared memory differs from the kernel's layout")
             for align in (True, False):
                 nll, w = cf.ce_front_fwd(x, labels, cw, 255, out_hw, align)
+                nll2, w2 = cf.ce_front_fwd(x, labels, cw, 255, out_hw, align)
                 dl = cf.ce_front_bwd(x, labels, 255, out_hw, align, g)
                 again = cf.ce_front_bwd(x, labels, 255, out_hw, align, g)
                 xr = x.detach().clone().requires_grad_()
@@ -290,6 +312,8 @@ def phase_ce_front(torch, cf) -> tuple[dict, dict]:
                       f"ce_front outputs {nll.shape} {w.shape} {dl.shape} {dl.dtype}")
                 bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
                 same = torch.equal(dl.view(bits), again.view(bits))
+                same_f = (torch.equal(nll.view(torch.int32), nll2.view(torch.int32))
+                          and torch.equal(w.view(torch.int32), w2.view(torch.int32)))
                 e_f = (nll - nll_p).abs().max().item()
                 a, b = dl.float().flatten(), dl_p.float().flatten()
                 cos = (a @ b / (a.norm() * b.norm())).item()
@@ -299,10 +323,11 @@ def phase_ce_front(torch, cf) -> tuple[dict, dict]:
                 inert = not nll[ignored].any().item() and not w[ignored].any().item()
                 print(f"kernel ce_front {shape}->{out_hw} {str(dtype)[6:]} align_corners={align}: "
                       f"w exact {torch.equal(w, w_p)}, ignored inert {inert}, nll max err "
-                      f"{e_f:.3e}; dL cos {cos:.8f}, max err {e_b:.3e} (<= {tol_b:.3e}), two "
-                      f"launches bit-identical {same}")
+                      f"{e_f:.3e}, two launches bit-identical {same_f}; dL cos {cos:.8f}, max err "
+                      f"{e_b:.3e} (<= {tol_b:.3e}), two launches bit-identical {same}")
                 check(torch.equal(w, w_p) and inert and e_f <= 1e-4,
                       "ce_front_fwd disagrees with its plain version")
+                check(same_f, "two ce_front_fwd launches on the same inputs differ")
                 check(cos > 0.99999 and e_b <= tol_b,
                       "ce_front_bwd disagrees with autograd of the plain forward")
                 check(same, "two ce_front_bwd launches on the same inputs differ")
@@ -343,13 +368,26 @@ def phase_ce_front(torch, cf) -> tuple[dict, dict]:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
         })
-    k3_ms, call_ms = kernel_device_ms(torch, lambda: cf.ce_front_bwd(x, labels, 255, out_hw, True, g),
-                                      "ce_bwd_kernel")
-    ms = entries[1]["ms"]
-    print(f"ce_front_bwd {shape}->{out_hw} bf16 on the device alone (torch.profiler, 20 calls): "
-          f"kernel {k3_ms:.4f} ms, every kernel of the call {call_ms:.4f} ms, event window "
-          f"{ms:.4f} ms ({ms / k3_ms - 1:+.1%})")
-    entries[1]["deterministic"] = True  # checked bit for bit at every case above
+    for entry, kernel, fn in (
+        (entries[0], "ce_fwd_kernel", lambda: cf.ce_front_fwd(x, labels, cw, 255, out_hw, True)),
+        (entries[1], "ce_bwd_kernel",
+         lambda: cf.ce_front_bwd(x, labels, 255, out_hw, True, g)),
+    ):
+        k_ms, call_ms = kernel_device_ms(torch, fn, kernel)
+        ms = entry["ms"]
+        print(f"{entry['name']} {shape}->{out_hw} bf16 on the device alone (torch.profiler, 20 "
+              f"calls): kernel {k_ms:.4f} ms, every kernel of the call {call_ms:.4f} ms, event "
+              f"window {ms:.4f} ms ({ms / k_ms - 1:+.1%})")
+        entry["deterministic"] = True  # checked bit for bit at every case above
+
+    shape, out_hw = CE_EVAL  # K2 on the eval path
+    base, labels, cw, _ = ce_inputs(torch, rng, shape, out_hw)
+    x = base.to(torch.bfloat16)
+    counted = (labels >= 0) & (labels < shape[3])
+    ms = time_ms(lambda: cf.ce_front_fwd(x, labels, cw, 255, out_hw, True))
+    bound_ms, bound_by = ce_bound_ms(shape, out_hw, x.element_size(), int(counted.sum()), False)
+    print(f"kernel ce_front_fwd {shape}->{out_hw} bf16 (the eval shape): {ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
     return entries[0], entries[1]
 
 

@@ -17,16 +17,52 @@
 // block per image that every grid step revisits. Nothing persists between
 // blocks on Hopper, so:
 //
-// ce_fwd: one thread per output pixel, neighbouring threads on neighbouring
-//   pixels of a row (the label loads and the two fp32 stores coalesce; the
-//   8 pixels of an 8x upsample share their taps in L1). One pass over C
-//   keeps an online logsumexp (running max m, running sum s, one exp per
-//   class) and picks z[label] and cw[label] on the way.
+// ce_fwd: a column walk. A block owns a band of output rows [ya, yb) and a
+//   tile of output columns [xa, xb) of one image, so each output pixel has
+//   one owner and is written once. The plan (band, tile, lanes a pixel,
+//   threads, the staged window's size, shared memory) is made in Python,
+//   ops/ce_front.py::forward_plan, which the CPU tests walk.
+//   1. The block stages the source pixels under its taps in shared memory:
+//      rows y0(ya) .. y0(yb-1)+1, columns x0(xa) .. x0(xb-1)+1 (from its own
+//      taps; the plan leaves room for two more of each), each pixel's
+//      classes padded to whole lane slices, so that every tap load below is
+//      an 8- or 16-byte vector with no class guard; and the class weights.
+//      A lane's slice holds every lpp-th class (slot j of lane l holds class
+//      l + lpp j), so that each lane has at least CB - 4 real classes and
+//      only its last four slots need a guard on the exps. Eight loads a
+//      thread are in flight before their stores.
+//   2. One thread (or lpp lanes, each a slice of at most 32 classes, for
+//      C > 32) per output column walks the band's rows in order. It keeps
+//      in registers `top`, the W-lerp of source row y0 at its column, and
+//      `dif`, row y0+1 minus it, reloaded only when y0 moves (once per
+//      source row, not per pixel), and loads the next row's label ahead of
+//      its use. A counted pixel takes z_c = top_c + h1 dif_c (one FMA), the
+//      max over four partial maxima (and the lanes), one exp a class
+//      (ex2.approx.ftz on one folded FMA: exactly C, no second exp when the
+//      max moves, no branch on the data in the class loop; the walk is
+//      bound by the rate at which the SM dispatches instructions, so every
+//      instruction a class counts, and only a lane's last four slots take a
+//      guard), the sum of four partial sums and one lg2; z[label] is lerped
+//      from the staged taps by the same arithmetic.
+//      nll = ln2 lg2(s) + m - z[label], w = cw[label].
+//      An ignored or out-of-range pixel stores (0, 0) and takes no exp.
+//      Neighbouring threads own neighbouring columns, so the label loads and
+//      the two stores coalesce; with lpp > 1 one lane stores.
+//   Invariants: no atomics and one fixed order of fp32 operations, so two
+//   launches give bit-identical maps (chip_smoke.py checks it); at most 1024
+//   classes (32 lanes of 32). In a build without -DNDEBUG device asserts
+//   check that the window fits the plan and holds every tap.
 //   Bound at the training main path, (6,128,128,19) bf16 -> (6,1024,1024):
 //   bytes 3.74 MB of logits + 25.2 MB of labels read, 50.3 MB of maps
-//   written (~24 us at 3.35 TB/s); 120 M exps on the special-function
-//   units (16 per SM per clock: ~29 us) set the least time, ahead of the
-//   ~0.85 GFLOP of fp32 lerps and sums (~13 us).
+//   written (~24 us at 3.35 TB/s); ~113 M exps and logs on the
+//   special-function units (16 per SM per clock: ~27 us) set the least
+//   time, ahead of the ~0.85 GFLOP of fp32 lerps and sums (~13 us). The
+//   walk runs ~5 instructions a class and pixel (FMA, max, FMA, ex2, add)
+//   and ~60 more a pixel (its taps, label, z[label], sum, log, stores), so
+//   the SM's dispatch rate (4 warp instructions a clock) is a closer limit
+//   than the exps: more warps an SM at fewer registers (z
+//   recomputed) ran slower. The 50 MB of map stores are not hidden behind
+//   the walk (tools/ce_fwd_ablate.py).
 //
 // ce_bwd: the separable adjoint, with no atomics. A block owns a band of
 //   BH source rows [i0, i0+BH) and a tile of BW source columns [j0, j0+BW)
@@ -82,55 +118,6 @@ namespace {
 
 __device__ __forceinline__ bool counted(int label, int ignore, int c) {
   return label != ignore && label >= 0 && label < c;
-}
-
-// Online logsumexp over the C upsampled values of one pixel: (m, s) with
-// sum_c exp(z_c - m) == s, m = max_c z_c; z[label] on the way.
-template <typename T>
-__device__ __forceinline__ void logsumexp(const bilinear::Taps<T>& t, int c, int label,
-                                          float* m_out, float* s_out, float* zt_out) {
-  float m = -INFINITY, s = 0.f, zt = 0.f;
-  for (int k = 0; k < c; ++k) {
-    const float z = t.value(k);
-    if (k == label) zt = z;
-    if (z > m) {
-      s = s * expf(m - z) + 1.f;
-      m = z;
-    } else {
-      s += expf(z - m);
-    }
-  }
-  *m_out = m;
-  *s_out = s;
-  *zt_out = zt;
-}
-
-template <typename T>
-__global__ void ce_fwd_kernel(const T* __restrict__ logits, const int32_t* __restrict__ labels,
-                              const float* __restrict__ cw, float* __restrict__ nll,
-                              float* __restrict__ wmap, int n, int h, int w, int c, int oh,
-                              int ow, int ignore, bool align_corners) {
-  const int64_t total = (int64_t)n * oh * ow;
-  const float sh = bilinear::source_scale(h, oh, align_corners);
-  const float sw = bilinear::source_scale(w, ow, align_corners);
-  for (int64_t p = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; p < total;
-       p += (int64_t)gridDim.x * blockDim.x) {
-    const int label = labels[p];
-    if (!counted(label, ignore, c)) {
-      nll[p] = 0.f;
-      wmap[p] = 0.f;
-      continue;
-    }
-    const int ox = (int)(p % ow);
-    const int64_t rest = p / ow;
-    const int oy = (int)(rest % oh);
-    const int b = (int)(rest / oh);
-    const bilinear::Taps<T> t(logits, b, oy, ox, h, w, c, sh, sw, align_corners);
-    float m, s, zt;
-    logsumexp(t, c, label, &m, &s, &zt);
-    nll[p] = logf(s) + m - zt;
-    wmap[p] = cw[label];
-  }
 }
 
 // Four staged logits, as floats: an 8-byte load of bf16, a 16-byte load
@@ -434,21 +421,203 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
   }
 }
 
-int blocks_for(int64_t total, int threads) {
-  int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > 1048576) blocks = 1048576;  // grid-stride loop covers the rest
-  return blocks < 1 ? 1 : (int)blocks;
+constexpr int kFwdThreads = 256;  // the most threads of a forward block
+constexpr float kLn2 = 0.6931471805599453f;
+
+// log2(x) on the special-function unit (x >= 1 here).
+__device__ __forceinline__ float log2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <typename T>
-int launch_fwd(const void* logits, const void* labels, const void* cw, void* nll, void* wmap,
-               int n, int h, int w, int c, int oh, int ow, int ignore, int align_corners,
-               void* stream) {
-  const int threads = 256;
-  ce_fwd_kernel<T><<<blocks_for((int64_t)n * oh * ow, threads), threads, 0,
-                     (cudaStream_t)stream>>>(
-      (const T*)logits, (const int32_t*)labels, (const float*)cw, (float*)nll, (float*)wmap, n,
-      h, w, c, oh, ow, ignore, align_corners != 0);
+// Shared memory of one ce_fwd block, as byte offsets; the Python plan
+// (ops/ce_front.py::forward_smem_bytes) mirrors it. `window` staged pixels,
+// each of lpp slices of cb slots (slot j of slice l: class l + lpp j), then
+// the C class weights.
+struct FwdLayout {
+  int cs;  // class stride of the staged logits: lpp * cb
+  size_t cw, total;
+  __host__ __device__ FwdLayout(int c, int window, int lpp, int cb, int itemsize) {
+    cs = lpp * cb;
+    cw = ((size_t)window * cs * itemsize + 15) / 16 * 16;
+    total = cw + (size_t)c * 4;
+  }
+};
+
+template <typename T, int CB>
+__global__ void __launch_bounds__(kFwdThreads, CB <= 20 ? 3 : 2)
+    ce_fwd_kernel(const T* __restrict__ logits, const int32_t* __restrict__ labels,
+                  const float* __restrict__ cw, float* __restrict__ nll,
+                  float* __restrict__ wmap, int h, int w, int c, int oh, int ow, int ignore,
+                  bool align_corners, int band, int tile, int lpp, int window, int bands,
+                  int tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const FwdLayout lay(c, window, lpp, CB, sizeof(T));
+  const int cs = lay.cs;
+  T* stage = reinterpret_cast<T*>(smem);
+  float* wsh = reinterpret_cast<float*>(smem + lay.cw);
+
+  const int img = blockIdx.x / (tiles * bands);
+  const int ya = (blockIdx.x / tiles) % bands * band, yb = min(ya + band, oh);
+  const int xa = blockIdx.x % tiles * tile, xb = min(xa + tile, ow);
+  const float sh = bilinear::source_scale(h, oh, align_corners);
+  const float sw = bilinear::source_scale(w, ow, align_corners);
+
+  // the staged source pixels, rows [r0, r0 + nr) and columns [q0, q0 + nq):
+  // the taps of the band's first and last rows and of the tile's first and
+  // last columns (the taps do not decrease along a row or a column)
+  int r0, q0, last, st;
+  float l1;
+  bilinear::source_taps(ya, sh, h, align_corners, &r0, &st, &l1);
+  bilinear::source_taps(yb - 1, sh, h, align_corners, &last, &st, &l1);
+  const int nr = last + st - r0 + 1;
+  bilinear::source_taps(xa, sw, w, align_corners, &q0, &st, &l1);
+  bilinear::source_taps(xb - 1, sw, w, align_corners, &last, &st, &l1);
+  const int nq = last + st - q0 + 1;
+  assert(nr * nq <= window);  // forward_plan's bound
+
+  const int px = threadIdx.x / lpp, lane = threadIdx.x % lpp, kb = lane * CB;
+  const bool live = xa + px < xb;
+  const int64_t pix = ((int64_t)img * oh + ya) * ow + xa + px;  // the band's first row
+  const int32_t* lab = labels + pix;
+  int next_label = live ? lab[0] : 0;  // in flight during the staging
+
+  // Thread t stages slots t, t + T, t + 2T, ... of the window, pixel by
+  // pixel; its (pixel p, slot k) and the pixel's staged row rr advance by
+  // addition, with no division a slot. Eight loads are in flight before
+  // their stores.
+  {
+    const T* src = logits + (((int64_t)img * h + r0) * w + q0) * c;
+    const int dp = blockDim.x / cs, dk = blockDim.x - dp * cs, total = nr * nq;
+    int p = threadIdx.x / cs, k = threadIdx.x - p * cs, rr = 0;
+    while (p < total) {
+      T v[8];
+      int dst[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        dst[j] = -1;
+        if (p < total) {
+          while (p >= (rr + 1) * nq) ++rr;
+          const int cls = k / CB + lpp * (k % CB);  // slot k's class
+          dst[j] = p * cs + k;
+          v[j] = cls < c ? src[((int64_t)rr * w + p - rr * nq) * c + cls] : T(0.f);
+        }
+        p += dp;
+        k += dk;
+        if (k >= cs) {
+          k -= cs;
+          ++p;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (dst[j] >= 0) stage[dst[j]] = v[j];
+      }
+    }
+  }
+  for (int k = threadIdx.x; k < c; k += blockDim.x) wsh[k] = cw[k];
+  __syncthreads();
+
+  // The walk: each pixel's lpp lanes go down output column xa + px over the
+  // band's rows, with the W-lerped source rows in registers. No barrier and
+  // no shared-memory store inside it.
+  int x0 = q0, xstep = 0;
+  float wl1 = 0.f;
+  if (live) {
+    bilinear::source_taps(xa + px, sw, w, align_corners, &x0, &xstep, &wl1);
+    assert(x0 >= q0 && x0 + xstep < q0 + nq);  // in the window
+  }
+  const float wl0 = 1.f - wl1;
+  const int dx = xstep * cs, rs = nq * cs;  // to the right tap, to the next staged row
+  const T* col0 = stage + (x0 - q0) * cs;   // slot 0 of the left tap in staged row 0
+  const int lsh = __ffs(lpp) - 1;           // lpp is a power of two
+
+  // top: the W-lerp of row y0, dif: row y0 + ystep minus it; padded slots
+  // sit at top = -inf, dif = 0, so that z is -inf there and drops out of the max
+  float top[CB], dif[CB], z[CB];
+  int cur = -1;  // the source row of top
+  for (int y = ya; y < yb; ++y) {
+    const int label = next_label;
+    if (live && y + 1 < yb) next_label = lab[(int64_t)(y + 1 - ya) * ow];  // ahead of its use
+    int y0, ystep;
+    float hl1;
+    bilinear::source_taps(y, sh, h, align_corners, &y0, &ystep, &hl1);
+    assert(y0 >= r0 && y0 + ystep < r0 + nr);  // in the window
+    const T* row0 = col0 + (y0 - r0) * rs;
+    const int dy = ystep * rs;
+    if (y0 != cur) {  // a new source row: W-lerp its two rows at this column
+      w_lerp<T, CB>(row0 + kb, row0 + kb + dx, wl0, wl1, top);
+      w_lerp<T, CB>(row0 + kb + dy, row0 + kb + dy + dx, wl0, wl1, dif);
+#pragma unroll
+      for (int k = 0; k < CB; ++k) {
+        const bool real = lane + lpp * k < c;
+        dif[k] = real ? dif[k] - top[k] : 0.f;
+        top[k] = real ? top[k] : -INFINITY;
+      }
+      cur = y0;
+    }
+
+    const int64_t at = pix + (int64_t)(y - ya) * ow;
+    const bool hit = live && counted(label, ignore, c);
+    const unsigned lanes = lpp > 1 ? __ballot_sync(0xffffffffu, hit) : 0u;
+    if (!hit) {  // ignored or outside [0, C): (0, 0), no exp
+      if (live && kb == 0) {  // the (0, 0) of an uncounted pixel
+        nll[at] = 0.f;
+        wmap[at] = 0.f;
+      }
+      continue;
+    }
+    // z = top + h1 dif, one FMA a class, and its max as four partial maxima
+    float pmax[4];
+#pragma unroll
+    for (int k = 0; k < CB; ++k) {
+      z[k] = fmaf(hl1, dif[k], top[k]);
+      pmax[k & 3] = k < 4 ? z[k] : fmaxf(pmax[k & 3], z[k]);
+    }
+    float zmax = fmaxf(fmaxf(pmax[0], pmax[1]), fmaxf(pmax[2], pmax[3]));
+    for (int bit = 1; bit < lpp; bit <<= 1) zmax = fmaxf(zmax, __shfl_xor_sync(lanes, zmax, bit));
+    // exactly one exp a real class, 2^(z log2(e) - m log2(e)): one FMA and
+    // one ex2; a lane's first CB - 4 slots are real, so only its last four
+    // take a guard
+    const float mlog2e = zmax * kLog2e;
+    float psum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < CB; ++k) {
+      if (k < CB - 4 || lane + lpp * k < c)
+        psum[k & 3] += exp2_approx(fmaf(z[k], kLog2e, -mlog2e));
+    }
+    float sum = (psum[0] + psum[1]) + (psum[2] + psum[3]);
+    for (int bit = 1; bit < lpp; bit <<= 1) sum += __shfl_xor_sync(lanes, sum, bit);
+    // z[label], lerped from the staged taps by the registers' arithmetic
+    const T* tl = row0 + (label & (lpp - 1)) * CB + (label >> lsh);
+    const float tt = wl0 * bilinear::to_float(tl[0]) + wl1 * bilinear::to_float(tl[dx]);
+    const float tb = wl0 * bilinear::to_float(tl[dy]) + wl1 * bilinear::to_float(tl[dy + dx]);
+    const float zt = fmaf(hl1, tb - tt, tt);
+    if (kb == 0) {  // one lane stores the counted pixel
+      nll[at] = fmaf(log2_approx(sum), kLn2, zmax - zt);
+      wmap[at] = wsh[label];
+    }
+  }
+}
+
+template <typename T, int CB>
+int launch_fwd_cb(const void* logits, const void* labels, const void* cw, void* nll, void* wmap,
+                  int n, int h, int w, int c, int oh, int ow, int ignore, int align_corners,
+                  int band, int tile, int lpp, int window, int threads, void* stream) {
+  const int bands = (oh + band - 1) / band, tiles = (ow + tile - 1) / tile;
+  const int64_t blocks = (int64_t)n * bands * tiles;
+  if (blocks > 2147483647LL || threads > kFwdThreads || threads % 32 != 0 || tile * lpp > threads)
+    return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = FwdLayout(c, window, lpp, CB, sizeof(T)).total;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ce_fwd_kernel<T, CB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  ce_fwd_kernel<T, CB><<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const T*)logits, (const int32_t*)labels, (const float*)cw, (float*)nll, (float*)wmap, h, w,
+      c, oh, ow, ignore, align_corners != 0, band, tile, lpp, window, bands, tiles);
   return (int)cudaGetLastError();
 }
 
@@ -496,20 +665,42 @@ int launch_bwd(const void* logits, const void* labels, const void* g, void* dl, 
                 lpp, threads, stream);
 }
 
+template <typename T>
+int launch_fwd(const void* logits, const void* labels, const void* cw, void* nll, void* wmap,
+               int n, int h, int w, int c, int oh, int ow, int ignore, int align_corners, int band,
+               int tile, int lpp, int window, int threads, void* stream) {
+  auto launch = &launch_fwd_cb<T, 32>;
+  switch (class_slice(c, lpp)) {
+    case 4: launch = &launch_fwd_cb<T, 4>; break;
+    case 8: launch = &launch_fwd_cb<T, 8>; break;
+    case 12: launch = &launch_fwd_cb<T, 12>; break;
+    case 16: launch = &launch_fwd_cb<T, 16>; break;
+    case 20: launch = &launch_fwd_cb<T, 20>; break;
+    case 24: launch = &launch_fwd_cb<T, 24>; break;
+    case 28: launch = &launch_fwd_cb<T, 28>; break;
+    case 32: break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return launch(logits, labels, cw, nll, wmap, n, h, w, c, oh, ow, ignore, align_corners, band,
+                tile, lpp, window, threads, stream);
+}
+
 }  // namespace
 
 extern "C" int ce_fwd_bf16(const void* logits, const void* labels, const void* cw, void* nll,
                            void* wmap, int n, int h, int w, int c, int oh, int ow, int ignore,
-                           int align_corners, void* stream) {
+                           int align_corners, int band, int tile, int lpp, int window,
+                           int threads, void* stream) {
   return launch_fwd<__nv_bfloat16>(logits, labels, cw, nll, wmap, n, h, w, c, oh, ow, ignore,
-                                   align_corners, stream);
+                                   align_corners, band, tile, lpp, window, threads, stream);
 }
 
 extern "C" int ce_fwd_f32(const void* logits, const void* labels, const void* cw, void* nll,
                           void* wmap, int n, int h, int w, int c, int oh, int ow, int ignore,
-                          int align_corners, void* stream) {
+                          int align_corners, int band, int tile, int lpp, int window, int threads,
+                          void* stream) {
   return launch_fwd<float>(logits, labels, cw, nll, wmap, n, h, w, c, oh, ow, ignore,
-                           align_corners, stream);
+                           align_corners, band, tile, lpp, window, threads, stream);
 }
 
 extern "C" int ce_bwd_bf16(const void* logits, const void* labels, const void* g, void* dl, int n,
@@ -529,4 +720,9 @@ extern "C" int ce_bwd_f32(const void* logits, const void* labels, const void* g,
 // The shared-memory bytes of one ce_bwd block, for the plan's cross-check.
 extern "C" long long ce_bwd_smem_bytes(int c, int band, int tile, int xw, int lpp, int itemsize) {
   return (long long)BwdLayout(c, band, tile, xw, lpp, class_slice(c, lpp), itemsize).total;
+}
+
+// The shared-memory bytes of one ce_fwd block, for the plan's cross-check.
+extern "C" long long ce_fwd_smem_bytes(int c, int window, int lpp, int itemsize) {
+  return (long long)FwdLayout(c, window, lpp, class_slice(c, lpp), itemsize).total;
 }

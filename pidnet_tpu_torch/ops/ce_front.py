@@ -18,16 +18,18 @@ gradient.
 
 `ce_maps` runs `ce_front_fwd` / `ce_front_bwd` inside a
 `torch.autograd.Function`. Each launches its kernel for a CUDA tensor
-(bf16 or fp32 logits, both align_corners modes, any size; fp32 arithmetic)
-and raises on what the kernel does not take; for a CPU tensor it runs the
-plain version, `ce_front_fwd_plain` / `ce_front_bwd_plain`. `fwd_launches`
-and `bwd_launches` count kernel launches. The backward kernel computes the
-adjoint band by band without atomics, so its dL is the same bit for bit
-from run to run; `backward_plan` cuts the work into its blocks.
+(bf16 or fp32 logits, both align_corners modes, up to 1024 classes; fp32
+arithmetic) and raises on what the kernel does not take; for a CPU tensor
+it runs the plain version, `ce_front_fwd_plain` / `ce_front_bwd_plain`.
+`fwd_launches` and `bwd_launches` count kernel launches. Both kernels write
+each output element once, without atomics, so their outputs are the same
+bit for bit from run to run; `forward_plan` and `backward_plan` cut the
+work into their blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from functools import lru_cache
 from typing import NamedTuple
@@ -45,6 +47,9 @@ SMEM_OPT_IN = 232448  # 227 KB: the most shared memory an H100 block can opt in 
 _SMEM_TARGET = 113 * 1024  # two backward blocks an SM
 _MIN_BLOCKS = 2 * 132  # two blocks on each of the H100's SMs
 BWD_THREADS = 256  # the most threads of a backward block (kBwdThreads)
+FWD_THREADS = 256  # the most threads of a forward block (kFwdThreads)
+_FWD_SMEM_TARGET = 72 * 1024  # three forward blocks an SM
+MAX_CLASSES = 32 * 32  # 32 lanes a pixel, 32 classes a lane
 _fns: dict = {}
 
 
@@ -98,9 +103,8 @@ def _kernel_fn(kind: str, dtype: torch.dtype):
         from pidnet_tpu_torch.ops._build import library
 
         fn = getattr(library("ce_front"), name)
-        n_ints = 8 if kind == "fwd" else 13
         n_ptrs = 5 if kind == "fwd" else 4
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -134,26 +138,112 @@ def ce_front_fwd(logits, labels, class_weights, ignore_label: int, out_hw,
                  align_corners: bool):
     """(nll, w), each (N,OH,OW) fp32, from (N,h,w,C) logits and (N,OH,OW)
     labels. On a CUDA tensor (contiguous NHWC bf16/fp32 logits, contiguous
-    int32 labels) this launches the forward kernel; on a CPU tensor it
-    runs `ce_front_fwd_plain`."""
+    int32 labels, C <= 1024) this launches the forward kernel on
+    `forward_plan`'s blocks, which writes each pixel once; on a CPU tensor
+    it runs `ce_front_fwd_plain`."""
     global fwd_launches
     if logits.device.type == "cpu":
         return ce_front_fwd_plain(logits, labels, class_weights, ignore_label, out_hw,
                                   align_corners)
     n, h, w, c, oh, ow = _check("ce_front_fwd", logits, labels, out_hw)
+    plan = forward_plan(n, h, w, c, oh, ow, bool(align_corners), logits.element_size())
     fn = _kernel_fn("fwd", logits.dtype)
-    with torch.cuda.device(logits.device):
+    # switch devices only where needed: the switch's host time shows in
+    # back-to-back launches
+    on = (contextlib.nullcontext() if logits.device.index == torch.cuda.current_device()
+          else torch.cuda.device(logits.device))
+    with on:
         cw = class_weights_on(class_weights, c, logits.device)
         nll = torch.empty((n, oh, ow), dtype=torch.float32, device=logits.device)
         wmap = torch.empty_like(nll)
         stream = torch.cuda.current_stream(logits.device).cuda_stream
         err = fn(logits.data_ptr(), labels.data_ptr(), cw.data_ptr(), nll.data_ptr(),
                  wmap.data_ptr(), n, h, w, c, oh, ow, int(ignore_label),
-                 int(bool(align_corners)), stream)
+                 int(bool(align_corners)), plan.band, plan.tile, plan.lpp, plan.window,
+                 plan.threads, stream)
     if err != 0:
         raise RuntimeError(f"ce_front_fwd kernel launch failed: cudaError {err}")
     fwd_launches += 1
     return nll, wmap
+
+
+def lanes_per_pixel(c: int, fn_name: str) -> int:
+    """The fewest lanes, a power of two, that hold C classes in slices of
+    at most 32; raises above 1024 classes."""
+    if c > MAX_CLASSES:
+        raise ValueError(f"{fn_name}: {c} classes, more than {MAX_CLASSES}")
+    lpp = 1
+    while -(-c // lpp) > 32:
+        lpp *= 2
+    return lpp
+
+
+def forward_smem_bytes(c: int, window: int, lpp: int, itemsize: int) -> int:
+    """Shared memory of one forward block (FwdLayout in csrc/ce_front.cu):
+    `window` staged pixels of lpp slices of `class_slice` classes each,
+    then the C fp32 class weights."""
+    return -(-window * lpp * class_slice(c, lpp) * itemsize // 16) * 16 + 4 * c
+
+
+def _spans(in_size: int, out_size: int, step: int, align_corners: bool):
+    """(spans, 2) output ranges [a, b) of `step` indices each, and (spans,
+    2) the source ranges [i0(a), i1(b-1) + 1) their taps read."""
+    i0, i1, _ = source_taps(in_size, out_size, align_corners)
+    a = np.arange(0, out_size, step)
+    b = np.minimum(a + step, out_size)
+    return np.stack([a, b], 1), np.stack([i0[a], i1[b - 1] + 1], 1)
+
+
+class ForwardPlan(NamedTuple):
+    band: int  # output rows of a block
+    tile: int  # output columns of a block
+    lpp: int  # lanes that share a pixel, each with a slice of its classes
+    rows: np.ndarray  # (bands, 2) output rows [a, b) of each band
+    cols: np.ndarray  # (tiles, 2) output columns [a, b) of each tile
+    src_rows: np.ndarray  # (bands, 2) source rows [r0, r1) each band stages
+    src_cols: np.ndarray  # (tiles, 2) source columns [q0, q1) each tile stages
+    window: int  # staged pixels a block has room for
+    threads: int
+    smem: int  # shared-memory bytes a block
+    blocks: int
+
+
+@lru_cache(maxsize=64)
+def forward_plan(n: int, h: int, w: int, c: int, oh: int, ow: int, align_corners: bool,
+                 itemsize: int) -> ForwardPlan:
+    """The forward kernel's blocks: one per image, band of output rows and
+    tile of output columns, each pixel owned by one block; lpp lanes to
+    each of the tile's columns (`lanes_per_pixel`). The tile is the widest
+    that fits 256 threads, evened out over the tiles. A block stages the
+    source pixels under its taps, `src_rows` x `src_cols`; the kernel finds
+    its own from the device's float32 taps, which may round by one ulp the
+    other way at either end, so the window leaves room for two more rows
+    and two more columns. The band is the largest of 64, 32, ..., 2 whose
+    block fits in 72 KB of shared memory (three blocks an SM) and which
+    still gives two blocks to each of the card's 132 SMs, else 1."""
+    lpp = lanes_per_pixel(c, "ce_front_fwd")
+    tile = -(-ow // -(-ow // (FWD_THREADS // lpp)))
+    cols, src_cols = _spans(w, ow, tile, align_corners)
+    nq = min(int((src_cols[:, 1] - src_cols[:, 0]).max()) + 2, w)
+
+    def window_of(band):
+        rows, src_rows = _spans(h, oh, band, align_corners)
+        return rows, src_rows, min(int((src_rows[:, 1] - src_rows[:, 0]).max()) + 2, h) * nq
+
+    band = 1
+    for cand in (64, 32, 16, 8, 4, 2):
+        rows, _, window = window_of(cand)
+        if (forward_smem_bytes(c, window, lpp, itemsize) <= _FWD_SMEM_TARGET
+                and n * len(rows) * len(cols) >= _MIN_BLOCKS):
+            band = cand
+            break
+    rows, src_rows, window = window_of(band)
+    smem = forward_smem_bytes(c, window, lpp, itemsize)
+    if smem > SMEM_OPT_IN:
+        raise ValueError(f"ce_front_fwd: a block needs {smem} bytes of shared memory")
+    threads = -(-tile * lpp // 32) * 32
+    return ForwardPlan(band, tile, lpp, rows, cols, src_rows, src_cols, window, threads, smem,
+                       n * len(rows) * len(cols))
 
 
 def tap_ranges(in_size: int, out_size: int, tile: int, align_corners: bool) -> np.ndarray:
@@ -209,11 +299,7 @@ def backward_plan(n: int, h: int, w: int, c: int, oh: int, ow: int, align_corner
     is the largest of 8, 4, 2 whose block fits in 113 KB of shared memory
     (two blocks an SM) and which still gives two blocks to each of the
     card's 132 SMs, else 1."""
-    if c > 32 * 32:
-        raise ValueError(f"ce_front_bwd: {c} classes, more than 1024")
-    lpp = 1
-    while -(-c // lpp) > 32:
-        lpp *= 2
+    lpp = lanes_per_pixel(c, "ce_front_bwd")
     columns = BWD_THREADS // lpp
 
     def widest(tile):

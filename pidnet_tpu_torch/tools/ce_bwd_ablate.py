@@ -49,27 +49,29 @@ VARIANTS = {
 }
 
 
-def variant_source(name: str) -> str:
+def variant_source(name: str, variants: dict = VARIANTS, tool: str = "ce_bwd_ablate") -> str:
     """The kernel's source with the variant's edits; raises if an edit
     does not match exactly once."""
     src = (_build.CSRC / "ce_front.cu").read_text()
-    for old, new in VARIANTS[name]:
+    for old, new in variants[name]:
         if src.count(old) != 1:
-            raise RuntimeError(f"ce_bwd_ablate: {name}: {old!r} found {src.count(old)} times")
+            raise RuntimeError(f"{tool}: {name}: {old!r} found {src.count(old)} times")
         src = src.replace(old, new)
     return src
 
 
-def build_variants() -> dict:
+def build_variants(variants: dict = VARIANTS, tool: str = "ce_bwd_ablate",
+                   fn_name: str = "ce_bwd_bf16", n_ptrs: int = 4) -> dict:
     """Compile every variant at once (one nvcc each) into csrc/build/;
-    returns {name: the bf16 launch function}."""
+    returns {name: the bf16 launch function `fn_name`, whose arguments are
+    `n_ptrs` pointers, 13 ints and the stream}."""
     _build.BUILD.mkdir(parents=True, exist_ok=True)
     headers = b"".join(p.read_bytes() for p in sorted(_build.CSRC.glob("*.cuh")))
     procs = {}
-    for name in VARIANTS:
-        src = variant_source(name)
+    for name in variants:
+        src = variant_source(name, variants, tool)
         key = src.encode() + headers + " ".join(_build.NVCC_FLAGS).encode()
-        cu = _build.BUILD / f"ce_bwd_ablate-{name}-{hashlib.sha256(key).hexdigest()[:16]}.cu"
+        cu = _build.BUILD / f"{tool}-{name}-{hashlib.sha256(key).hexdigest()[:16]}.cu"
         so = cu.with_suffix(".so")
         proc = None
         if not so.exists():
@@ -83,9 +85,9 @@ def build_variants() -> dict:
         if proc is not None:
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"ce_bwd_ablate: nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(so)).ce_bwd_bf16
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+                raise RuntimeError(f"{tool}: nvcc failed for {name}:\n{log}")
+        fn = getattr(ctypes.CDLL(str(so)), fn_name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -107,11 +109,16 @@ def run(seed: int = 1) -> dict:
     args = (x.data_ptr(), labels.data_ptr(), g.data_ptr(), dl.data_ptr(), n, h, w, c, oh, ow, 255,
             1, plan.band, plan.tile, plan.xw, plan.lpp, plan.threads,
             torch.cuda.current_stream().cuda_stream)
+    return time_variants(fns, args)
+
+
+def time_variants(fns: dict, args: tuple, tool: str = "ce_bwd_ablate") -> dict:
+    """{variant: ms} of each launch function on the same arguments."""
     times = {}
     for name, fn in fns.items():
         err = fn(*args)
         if err != 0:
-            raise RuntimeError(f"ce_bwd_ablate: {name} launch failed: error {err}")
+            raise RuntimeError(f"{tool}: {name} launch failed: error {err}")
         times[name] = time_ms(lambda: fn(*args))
     return times
 

@@ -101,14 +101,16 @@ def test_served_classmap_launches_the_kernel(cuda_device):
      ((1, 5, 7, 3), (1, 1)), ((1, 64, 64, 19), (16, 16)),
      # bands of 4 rows over h = 126; column tiles; 40 classes, in chunks of 32
      ((6, 126, 128, 19), (1008, 1024)), ((1, 16, 512, 19), (128, 4096)),
-     ((1, 16, 16, 40), (128, 128))],
+     ((1, 16, 16, 40), (128, 128)),
+     # the eval shape; 100 classes, four lanes a pixel
+     ((2, 128, 256, 19), (1024, 2048)), ((1, 16, 16, 100), (128, 128))],
 )
 def test_ce_front_kernels_match_plain(cuda_device, dtype, align, shape, out_hw):
     """K2: w exact, ignored and out-of-range pixels 0, nll within 1e-4 of the
     plain version. K3: against autograd of the plain forward, cosine >
     0.99999 and max-abs within 2^-7 (bf16 output) or 1e-5 (fp32) of the
-    largest value; a second launch on the same inputs gives the same dL bit
-    for bit (no atomics, one fixed order of sums)."""
+    largest value. For each, a second launch on the same inputs gives the
+    same output bit for bit (no atomics, one fixed order of sums)."""
     rng = np.random.default_rng(3)
     n, _, _, c = shape
     x = torch.from_numpy((rng.standard_normal(shape) * 2).astype(np.float32))
@@ -120,9 +122,10 @@ def test_ce_front_kernels_match_plain(cuda_device, dtype, align, shape, out_hw):
     g = torch.from_numpy(rng.random((n, *out_hw)).astype(np.float32)).to(cuda_device)
     before = (TC.fwd_launches, TC.bwd_launches)
     nll, w = TC.ce_front_fwd(x, labels, cw, 255, out_hw, align)
+    nll2, w2 = TC.ce_front_fwd(x, labels, cw, 255, out_hw, align)
     dl = TC.ce_front_bwd(x, labels, 255, out_hw, align, g)
     again = TC.ce_front_bwd(x, labels, 255, out_hw, align, g)
-    assert (TC.fwd_launches, TC.bwd_launches) == (before[0] + 1, before[1] + 2)
+    assert (TC.fwd_launches, TC.bwd_launches) == (before[0] + 2, before[1] + 2)
     xr = x.detach().clone().requires_grad_()
     nll_p, w_p = TC.ce_front_fwd_plain(xr, labels, cw, 255, out_hw, align)
     (dl_p,) = torch.autograd.grad(nll_p, xr, g)
@@ -130,6 +133,7 @@ def test_ce_front_kernels_match_plain(cuda_device, dtype, align, shape, out_hw):
     inert = (labels == 255) | (labels == c + 1)
     assert torch.equal(w, w_p) and not nll[inert].any() and not w[inert].any()
     assert (nll - nll_p).abs().max().item() <= 1e-4
+    assert torch.equal(nll.view(torch.int32), nll2.view(torch.int32)) and torch.equal(w, w2)
     assert dl.dtype == x.dtype and dl.shape == x.shape
     assert torch.equal(dl.view(torch.int16 if dtype == "bfloat16" else torch.int32),
                        again.view(torch.int16 if dtype == "bfloat16" else torch.int32))
@@ -144,6 +148,11 @@ def test_ce_front_wrappers_reject_bad_input(cuda_device):
     x = torch.zeros((1, 4, 4, 3), device=cuda_device)
     lab = torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda_device)
     g = torch.zeros((1, 8, 8), device=cuda_device)
+    before = TC.fwd_launches
+    with pytest.raises(ValueError, match="1024"):
+        TC.ce_front_fwd(torch.zeros((1, 4, 4, 1025), device=cuda_device), lab, None, 255, (8, 8),
+                        True)
+    assert TC.fwd_launches == before
     with pytest.raises(TypeError):
         TC.ce_front_fwd(x.half(), lab, None, 255, (8, 8), True)
     with pytest.raises(ValueError, match="labels"):
