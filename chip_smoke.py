@@ -9,17 +9,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    every kernel in pidnet_tpu_torch/csrc built with nvcc for sm_90a;
 2. kernels: each kernel against its plain PyTorch version on seeded
    inputs, at every listed shape, in bf16 and fp32, both align_corners
-   modes: the fused upsample+argmax (K1, at the serving and the training
-   shapes among others), and the fused upsample+CE
+   modes: the fused upsample+argmax (K1: >= 0.9999 of pixels agree, none
+   whose fp32 top-2 margin exceeds 1e-3 differs; at the serving, training
+   and eval shapes among others, 100 classes and 1100, which take the
+   direct kernel), and the fused upsample+CE
    forward (K2: w exact, ignored pixels 0, nll within 1e-4) and backward
    (K3: cosine > 0.99999 against autograd of the plain forward, max-abs
    within 2^-7 of the largest value in bf16, 1e-5 in fp32), each with two
    launches on the same inputs bit-identical and its plan at each shape
    (bands, tiles, blocks, shared memory, cross-checked against the
    kernel's own layout); each one's time (CUDA events, median), the plain
-   version's, a library call's, and its bound; K1's, K2's and K3's device
-   time under torch.profiler beside their event times, and K2's time at
-   the eval shape;
+   version's, a library call's, and its bound; K2's and K3's device time
+   under torch.profiler beside their event times, and K2's time at the
+   eval shape; K1 at the serving, training and eval shapes four ways: its
+   device time (torch.profiler), raw launches without the wrapper and the
+   wrapper's calls (CUDA events), and the wrapper's host time a call;
 3. slice: PIDNet-S with the train2k weights, BN folded, serving the two
    sample frames at 1024x2048 in bf16 through
    engine.make_inference_classmap; the kernel's launch counter must rise
@@ -102,16 +106,21 @@ FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 # (N, h, w, C) logits -> (oh, ow): the serving main path, the training main
-# path (FullLoss's accuracy), a small batch, CamVid's 90x120 -> 720x960, and
-# an identity size
+# path (FullLoss's accuracy), the eval path (a val batch's matrices), a
+# small batch, CamVid's 90x120 -> 720x960, an identity size, 100 classes
+# (four lanes a pixel) and 1100 (the direct kernel)
 KERNEL_CASES = [
     ((1, 128, 256, 19), (1024, 2048)),
     ((6, 128, 128, 19), (1024, 1024)),
+    ((2, 128, 256, 19), (1024, 2048)),
     ((2, 16, 32, 19), (128, 256)),
     ((1, 90, 120, 11), (720, 960)),
     ((1, 128, 256, 19), (128, 256)),
+    ((1, 16, 16, 100), (128, 128)),
+    ((1, 8, 8, 1100), (32, 32)),
 ]
 MAIN_CASE = KERNEL_CASES[0]
+K1_TIMED = {"serving": KERNEL_CASES[0], "train": KERNEL_CASES[1], "eval": KERNEL_CASES[2]}
 TIMED_REQUESTS = 20
 
 # (N, h, w, C) logits -> (oh, ow) for the loss front: the training main
@@ -165,19 +174,36 @@ def phase_kernels(torch, ua) -> dict:
     """K1 against its plain version; returns its JSON entry (no launches yet)."""
     import torch.nn.functional as F
 
+    from pidnet_tpu_torch.ops._build import library
     from pidnet_tpu_torch.utils.timing import time_ms
 
+    smem_bytes = library("upsample_argmax").upsample_argmax_smem_bytes  # the kernel's layout
+    smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int] * 3, ctypes.c_longlong
     rng = np.random.default_rng(0)
     max_abs_err = 0.0
     for shape, out_hw in KERNEL_CASES:
         base = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 2).cuda()
         for dtype in (torch.bfloat16, torch.float32):
             x = base.to(dtype)
+            plan = ua.plan(*shape, *out_hw, True)
+            if plan is None:
+                print(f"upsample_argmax plan {shape}->{out_hw} {str(dtype)[6:]}: the direct "
+                      f"kernel (one thread a pixel)")
+            else:
+                own = smem_bytes(shape[3], plan.window, plan.lpp)
+                print(f"upsample_argmax plan {shape}->{out_hw} {str(dtype)[6:]}: "
+                      f"{len(plan.rows)} band(s) of {plan.band} output rows, {len(plan.cols)} "
+                      f"tile(s) of {plan.tile} output columns, {plan.blocks} blocks of "
+                      f"{plan.threads} threads ({plan.lpp} lane(s) a pixel), window of "
+                      f"{plan.window} source pixels, shared memory {plan.smem} bytes a block "
+                      f"(the kernel's layout: {own})")
+                check(own == plan.smem, "the K1 plan's shared memory differs from the kernel's")
             for align in (True, False):
                 # the plain fp32 upsample decides which pixels must match exactly
                 up = F.interpolate(x.permute(0, 3, 1, 2).float(), size=out_hw, mode="bilinear",
                                    align_corners=align)
                 got = ua.upsample_argmax(x, out_hw, align)
+                again = ua.upsample_argmax(x, out_hw, align)
                 want = ua.upsample_argmax_plain(x, out_hw, align)
                 torch.cuda.synchronize()
                 check(got.shape == want.shape == (shape[0], *out_hw) and got.dtype == torch.int32,
@@ -191,35 +217,59 @@ def phase_kernels(torch, ua) -> dict:
                 gap = (up.gather(1, want.long()[:, None]) - up.gather(1, got.long()[:, None]))
                 err = gap.abs().max().item()
                 max_abs_err = max(max_abs_err, err)
+                bits = torch.equal(got, again)
                 print(f"kernel upsample_argmax {tuple(shape)}->{out_hw} {str(dtype)[6:]} "
                       f"align_corners={align}: agreement {agree:.6f}, "
-                      f"confident mismatches {confident_miss}, max logit gap {err:.3e}")
+                      f"confident mismatches {confident_miss}, max logit gap {err:.3e}, two "
+                      f"launches bit-identical {bits}")
                 check(agree >= 0.9999 and confident_miss == 0,
                       f"kernel disagrees with its plain version: {agree}, {confident_miss}")
+                check(bits, "two upsample_argmax launches on the same inputs differ")
+                del up, top2, margin, gap
+
+    # K1's time at the three paths' shapes, four ways: the wrapper's event
+    # window, the kernel's device time, raw launches without the wrapper,
+    # and the wrapper's host time a call
+    timed = {}
+    for path, (shape, out_hw) in K1_TIMED.items():
+        n, h, w, c = shape
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 2).cuda()
+        x = x.to(torch.bfloat16)
+        plan = ua.plan(n, h, w, c, *out_hw, True)
+        out = torch.empty((n, *out_hw), dtype=torch.int32, device="cuda")
+        args = (x.data_ptr(), out.data_ptr(), n, h, w, c, *out_hw, 1, plan.band, plan.tile,
+                plan.lpp, plan.window, plan.threads, torch.cuda.current_stream().cuda_stream)
+        raw = ua._kernel_fn("upsample_argmax_bf16")
+        wrapper = lambda: ua.upsample_argmax(x, out_hw, True)  # noqa: E731
+        ms = time_ms(wrapper)
+        device_ms, call_ms = kernel_device_ms(torch, wrapper, "upsample_argmax_kernel")
+        raw_ms = time_ms(lambda: raw(*args))
+        host = host_ms(torch, wrapper)
+        bound_ms, bound_by = upsample_argmax_bound_ms(shape, out_hw, x.element_size())
+        timed[path] = (x, ms, device_ms, raw_ms, host, bound_ms, bound_by)
+        print(f"kernel upsample_argmax {shape}->{out_hw} bf16 ({path}): device {device_ms:.4f} "
+              f"ms (torch.profiler, 20 calls; every kernel of the call {call_ms:.4f}), raw "
+              f"launches {raw_ms:.4f} ms (CUDA events, no wrapper), wrapper calls {ms:.4f} ms "
+              f"(CUDA events), wrapper host {host:.4f} ms a call; bound {bound_ms:.4f} ms "
+              f"({bound_by}), device time at {bound_ms / device_ms:.1%} of it")
 
     shape, out_hw = MAIN_CASE
-    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 2).cuda()
-    x = x.to(torch.bfloat16)
-    ms = time_ms(lambda: ua.upsample_argmax(x, out_hw, True))
+    x, ms, device_ms, raw_ms, host, bound_ms, bound_by = timed["serving"]
     plain_ms = time_ms(lambda: ua.upsample_argmax_plain(x, out_hw, True))
     xn = x.permute(0, 3, 1, 2)
     library_ms = time_ms(lambda: torch.argmax(
         F.interpolate(xn, size=out_hw, mode="bilinear", align_corners=True), dim=1))
-    bound_ms, bound_by = upsample_argmax_bound_ms(shape, out_hw, x.element_size())
-    print(f"kernel upsample_argmax {shape}->{out_hw} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"F.interpolate+argmax {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{bound_ms / ms:.1%} of bound")
-    k1_ms, call_ms = kernel_device_ms(torch, lambda: ua.upsample_argmax(x, out_hw, True),
-                                      "upsample_argmax_kernel")
-    print(f"upsample_argmax {shape}->{out_hw} bf16 on the device alone (torch.profiler, 20 "
-          f"calls): kernel {k1_ms:.4f} ms, every kernel of the call {call_ms:.4f} ms, event "
-          f"window {ms:.4f} ms ({ms / k1_ms - 1:+.1%})")
+    print(f"kernel upsample_argmax {shape}->{out_hw} bf16: {ms:.4f} ms (wrapper window), "
+          f"device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, F.interpolate+argmax "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return {
         "name": "upsample_argmax", "route": "cuda",
         "source": "pidnet_tpu_torch/csrc/upsample_argmax.cu",
         "replaces": "pidnet_tpu/ops/upsample_argmax.py:44",
         "launches": None, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "device_ms": device_ms, "raw_launch_ms": raw_ms, "host_ms": host,
+        "deterministic": True,  # checked bit for bit at every case above
     }
 
 

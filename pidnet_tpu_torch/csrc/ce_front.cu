@@ -113,41 +113,13 @@
 #include <stdint.h>
 
 #include "bilinear.cuh"
+#include "walk.cuh"
 
 namespace {
 
 __device__ __forceinline__ bool counted(int label, int ignore, int c) {
   return label != ignore && label >= 0 && label < c;
 }
-
-// Four staged logits, as floats: an 8-byte load of bf16, a 16-byte load
-// of fp32.
-template <typename T>
-struct Vec4;
-
-template <>
-struct Vec4<float> {
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
-  }
-};
-
-template <>
-struct Vec4<__nv_bfloat16> {
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-    out[0] = lo.x;
-    out[1] = lo.y;
-    out[2] = hi.x;
-    out[3] = hi.y;
-  }
-};
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
@@ -189,23 +161,6 @@ __device__ int first_reaching(int s, bool reach, float scale, int in, int out, b
     }
   }
   return lo;
-}
-
-// The W-lerp of one staged source row at this lane's taps and classes:
-// out[k] = w0 L[x0][k] + w1 L[x1][k]. No load depends on C: the staged
-// pixel is padded to whole slices (ptxas miscompiled shared loads guarded
-// class by class into kernels that stopped with an illegal instruction).
-template <typename T, int CB>
-__device__ __forceinline__ void w_lerp(const T* p0, const T* p1, float w0, float w1,
-                                       float (&out)[CB]) {
-#pragma unroll
-  for (int v = 0; v < CB / 4; ++v) {
-    float a[4], b[4];
-    Vec4<T>::load(p0 + 4 * v, a);
-    Vec4<T>::load(p1 + 4 * v, b);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) out[4 * v + i] = w0 * a[i] + w1 * b[i];
-  }
 }
 
 // Rows of the H-adjoint accumulators into shared memory, once each.
@@ -345,8 +300,8 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
       }
       const T* row0 = col0 + (y0 - r0) * nq * lay.cs;
       const T* row1 = col0 + (y0 + ystep - r0) * nq * lay.cs;
-      w_lerp<T, CB>(row0, row0 + dx, wl0, wl1, top);
-      w_lerp<T, CB>(row1, row1 + dx, wl0, wl1, dif);
+      walk::w_lerp<T, CB>(row0, row0 + dx, wl0, wl1, top);
+      walk::w_lerp<T, CB>(row1, row1 + dx, wl0, wl1, dif);
 #pragma unroll
       for (int k = 0; k < CB; ++k) {
         const bool real = kb + k < c;
@@ -547,8 +502,8 @@ __global__ void __launch_bounds__(kFwdThreads, CB <= 20 ? 3 : 2)
     const T* row0 = col0 + (y0 - r0) * rs;
     const int dy = ystep * rs;
     if (y0 != cur) {  // a new source row: W-lerp its two rows at this column
-      w_lerp<T, CB>(row0 + kb, row0 + kb + dx, wl0, wl1, top);
-      w_lerp<T, CB>(row0 + kb + dy, row0 + kb + dy + dx, wl0, wl1, dif);
+      walk::w_lerp<T, CB>(row0 + kb, row0 + kb + dx, wl0, wl1, top);
+      walk::w_lerp<T, CB>(row0 + kb + dy, row0 + kb + dy + dx, wl0, wl1, dif);
 #pragma unroll
       for (int k = 0; k < CB; ++k) {
         const bool real = lane + lpp * k < c;
@@ -641,16 +596,13 @@ int launch_bwd_cb(const void* logits, const void* labels, const void* g, void* d
   return (int)cudaGetLastError();
 }
 
-// A lane's slice of classes: ceil(C / lpp) rounded up to 4, at most 32.
-__host__ __device__ inline int class_slice(int c, int lpp) { return ((c + lpp - 1) / lpp + 3) / 4 * 4; }
-
 // One instantiation for each slice width.
 template <typename T>
 int launch_bwd(const void* logits, const void* labels, const void* g, void* dl, int n, int h,
                int w, int c, int oh, int ow, int ignore, int align_corners, int band, int tile,
                int xw, int lpp, int threads, void* stream) {
   auto launch = &launch_bwd_cb<T, 32>;
-  switch (class_slice(c, lpp)) {
+  switch (walk::class_slice(c, lpp)) {
     case 4: launch = &launch_bwd_cb<T, 4>; break;
     case 8: launch = &launch_bwd_cb<T, 8>; break;
     case 12: launch = &launch_bwd_cb<T, 12>; break;
@@ -670,7 +622,7 @@ int launch_fwd(const void* logits, const void* labels, const void* cw, void* nll
                int n, int h, int w, int c, int oh, int ow, int ignore, int align_corners, int band,
                int tile, int lpp, int window, int threads, void* stream) {
   auto launch = &launch_fwd_cb<T, 32>;
-  switch (class_slice(c, lpp)) {
+  switch (walk::class_slice(c, lpp)) {
     case 4: launch = &launch_fwd_cb<T, 4>; break;
     case 8: launch = &launch_fwd_cb<T, 8>; break;
     case 12: launch = &launch_fwd_cb<T, 12>; break;
@@ -719,10 +671,10 @@ extern "C" int ce_bwd_f32(const void* logits, const void* labels, const void* g,
 
 // The shared-memory bytes of one ce_bwd block, for the plan's cross-check.
 extern "C" long long ce_bwd_smem_bytes(int c, int band, int tile, int xw, int lpp, int itemsize) {
-  return (long long)BwdLayout(c, band, tile, xw, lpp, class_slice(c, lpp), itemsize).total;
+  return (long long)BwdLayout(c, band, tile, xw, lpp, walk::class_slice(c, lpp), itemsize).total;
 }
 
 // The shared-memory bytes of one ce_fwd block, for the plan's cross-check.
 extern "C" long long ce_fwd_smem_bytes(int c, int window, int lpp, int itemsize) {
-  return (long long)FwdLayout(c, window, lpp, class_slice(c, lpp), itemsize).total;
+  return (long long)FwdLayout(c, window, lpp, walk::class_slice(c, lpp), itemsize).total;
 }

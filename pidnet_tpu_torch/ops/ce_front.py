@@ -37,19 +37,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pidnet_tpu_torch.ops._walk import (MIN_BLOCKS, SMEM_OPT_IN, THREADS, WalkPlan,
+                                        class_slice, lanes_per_pixel, stage_bytes,
+                                        walk_plan)
 from pidnet_tpu_torch.ops.resize import _interp_matrix, interpolate, source_taps
 
 fwd_launches = 0
 bwd_launches = 0
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
-SMEM_OPT_IN = 232448  # 227 KB: the most shared memory an H100 block can opt in to
 _SMEM_TARGET = 113 * 1024  # two backward blocks an SM
-_MIN_BLOCKS = 2 * 132  # two blocks on each of the H100's SMs
 BWD_THREADS = 256  # the most threads of a backward block (kBwdThreads)
-FWD_THREADS = 256  # the most threads of a forward block (kFwdThreads)
+FWD_THREADS = THREADS  # the most threads of a forward block (kFwdThreads)
 _FWD_SMEM_TARGET = 72 * 1024  # three forward blocks an SM
-MAX_CLASSES = 32 * 32  # 32 lanes a pixel, 32 classes a lane
 _fns: dict = {}
 
 
@@ -167,83 +167,27 @@ def ce_front_fwd(logits, labels, class_weights, ignore_label: int, out_hw,
     return nll, wmap
 
 
-def lanes_per_pixel(c: int, fn_name: str) -> int:
-    """The fewest lanes, a power of two, that hold C classes in slices of
-    at most 32; raises above 1024 classes."""
-    if c > MAX_CLASSES:
-        raise ValueError(f"{fn_name}: {c} classes, more than {MAX_CLASSES}")
-    lpp = 1
-    while -(-c // lpp) > 32:
-        lpp *= 2
-    return lpp
-
-
 def forward_smem_bytes(c: int, window: int, lpp: int, itemsize: int) -> int:
     """Shared memory of one forward block (FwdLayout in csrc/ce_front.cu):
     `window` staged pixels of lpp slices of `class_slice` classes each,
     then the C fp32 class weights."""
-    return -(-window * lpp * class_slice(c, lpp) * itemsize // 16) * 16 + 4 * c
-
-
-def _spans(in_size: int, out_size: int, step: int, align_corners: bool):
-    """(spans, 2) output ranges [a, b) of `step` indices each, and (spans,
-    2) the source ranges [i0(a), i1(b-1) + 1) their taps read."""
-    i0, i1, _ = source_taps(in_size, out_size, align_corners)
-    a = np.arange(0, out_size, step)
-    b = np.minimum(a + step, out_size)
-    return np.stack([a, b], 1), np.stack([i0[a], i1[b - 1] + 1], 1)
-
-
-class ForwardPlan(NamedTuple):
-    band: int  # output rows of a block
-    tile: int  # output columns of a block
-    lpp: int  # lanes that share a pixel, each with a slice of its classes
-    rows: np.ndarray  # (bands, 2) output rows [a, b) of each band
-    cols: np.ndarray  # (tiles, 2) output columns [a, b) of each tile
-    src_rows: np.ndarray  # (bands, 2) source rows [r0, r1) each band stages
-    src_cols: np.ndarray  # (tiles, 2) source columns [q0, q1) each tile stages
-    window: int  # staged pixels a block has room for
-    threads: int
-    smem: int  # shared-memory bytes a block
-    blocks: int
+    return stage_bytes(c, window, lpp, itemsize) + 4 * c
 
 
 @lru_cache(maxsize=64)
 def forward_plan(n: int, h: int, w: int, c: int, oh: int, ow: int, align_corners: bool,
-                 itemsize: int) -> ForwardPlan:
-    """The forward kernel's blocks: one per image, band of output rows and
-    tile of output columns, each pixel owned by one block; lpp lanes to
-    each of the tile's columns (`lanes_per_pixel`). The tile is the widest
-    that fits 256 threads, evened out over the tiles. A block stages the
-    source pixels under its taps, `src_rows` x `src_cols`; the kernel finds
-    its own from the device's float32 taps, which may round by one ulp the
-    other way at either end, so the window leaves room for two more rows
-    and two more columns. The band is the largest of 64, 32, ..., 2 whose
-    block fits in 72 KB of shared memory (three blocks an SM) and which
-    still gives two blocks to each of the card's 132 SMs, else 1."""
+                 itemsize: int) -> WalkPlan:
+    """The forward kernel's blocks (ops/_walk.walk_plan), lpp lanes a pixel
+    (`lanes_per_pixel`), with bands whose block fits in 72 KB of shared
+    memory (three blocks an SM); raises above 1024 classes or where a
+    block would need more than the opt-in."""
     lpp = lanes_per_pixel(c, "ce_front_fwd")
-    tile = -(-ow // -(-ow // (FWD_THREADS // lpp)))
-    cols, src_cols = _spans(w, ow, tile, align_corners)
-    nq = min(int((src_cols[:, 1] - src_cols[:, 0]).max()) + 2, w)
-
-    def window_of(band):
-        rows, src_rows = _spans(h, oh, band, align_corners)
-        return rows, src_rows, min(int((src_rows[:, 1] - src_rows[:, 0]).max()) + 2, h) * nq
-
-    band = 1
-    for cand in (64, 32, 16, 8, 4, 2):
-        rows, _, window = window_of(cand)
-        if (forward_smem_bytes(c, window, lpp, itemsize) <= _FWD_SMEM_TARGET
-                and n * len(rows) * len(cols) >= _MIN_BLOCKS):
-            band = cand
-            break
-    rows, src_rows, window = window_of(band)
-    smem = forward_smem_bytes(c, window, lpp, itemsize)
-    if smem > SMEM_OPT_IN:
-        raise ValueError(f"ce_front_fwd: a block needs {smem} bytes of shared memory")
-    threads = -(-tile * lpp // 32) * 32
-    return ForwardPlan(band, tile, lpp, rows, cols, src_rows, src_cols, window, threads, smem,
-                       n * len(rows) * len(cols))
+    plan = walk_plan(n, h, w, oh, ow, align_corners, lpp,
+                     lambda window: forward_smem_bytes(c, window, lpp, itemsize),
+                     _FWD_SMEM_TARGET)
+    if plan.smem > SMEM_OPT_IN:
+        raise ValueError(f"ce_front_fwd: a block needs {plan.smem} bytes of shared memory")
+    return plan
 
 
 def tap_ranges(in_size: int, out_size: int, tile: int, align_corners: bool) -> np.ndarray:
@@ -268,11 +212,6 @@ def backward_smem_bytes(c: int, band: int, tile: int, xw: int, lpp: int, itemsiz
     stage = -(-(band + 2) * (tile + 2) * lpp * class_slice(c, lpp) * itemsize // 16) * 16
     sums = -(-band * xw * (c | 1) * 4 // 16) * 16
     return stage + sums + 4 * (xw + tile + 2)
-
-
-def class_slice(c: int, lpp: int) -> int:
-    """The classes of one lane: ceil(C / lpp) rounded up to 4."""
-    return (-(-c // lpp) + 3) // 4 * 4
 
 
 class BackwardPlan(NamedTuple):
@@ -318,7 +257,7 @@ def backward_plan(n: int, h: int, w: int, c: int, oh: int, ow: int, align_corner
     band = 1
     for cand in (8, 4, 2):
         if (backward_smem_bytes(c, cand, tile, xw, lpp, itemsize) <= _SMEM_TARGET
-                and n * -(-h // cand) * len(cols) >= _MIN_BLOCKS):
+                and n * -(-h // cand) * len(cols) >= MIN_BLOCKS):
             band = cand
             break
     smem = backward_smem_bytes(c, band, tile, xw, lpp, itemsize)

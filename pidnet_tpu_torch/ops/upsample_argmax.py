@@ -3,26 +3,37 @@ pidnet_tpu/ops/upsample_argmax.py).
 
 Upsampling 1/8-resolution logits to the input size and argmaxing them as
 two ops writes an (N, H, W, C) tensor to device memory only to reduce it
-away again. The CUDA kernel (csrc/upsample_argmax.cu) computes each
-output pixel's class from its 2x2 source taps and writes only the
-(N, H, W) int32 map. exp() from the probability path is dropped: it is
-monotonic, so the argmax does not change.
+away again. The CUDA kernel (csrc/upsample_argmax.cu) is a column walk over
+`plan`'s bands of output rows and tiles of output columns: each block
+stages the source pixels under its taps in shared memory, and each output
+column keeps the W-lerps of its two source rows in registers, so that a
+pixel costs one FMA and one compare a class; only the (N, H, W) int32 map
+is written. Ties go to the lowest class. exp() from the probability path
+is dropped: it is monotonic, so the argmax does not change. What the walk
+does not take (more than 1024 classes, or a window too large for a block's
+shared memory) goes to the kernel's per-pixel form.
 
-`upsample_argmax` launches the kernel for a CUDA tensor and raises on
-what the kernel does not take; for a CPU tensor it runs the plain
-version, `upsample_argmax_plain`. `launches` counts kernel launches.
+`upsample_argmax` launches a kernel for a CUDA tensor and raises on what
+the kernels do not take; for a CPU tensor it runs the plain version,
+`upsample_argmax_plain`. `launches` counts kernel launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
 
+from pidnet_tpu_torch.ops._walk import (MAX_CLASSES, SMEM_OPT_IN, WalkPlan, lanes_per_pixel,
+                                        stage_bytes, walk_plan)
+
 launches = 0
 
-_DTYPES = {torch.bfloat16: "upsample_argmax_bf16", torch.float32: "upsample_argmax_f32"}
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_SMEM_TARGET = 56 * 1024  # four blocks an SM
 _fns: dict = {}
 
 
@@ -35,13 +46,31 @@ def upsample_argmax_plain(logits: torch.Tensor, out_hw, align_corners: bool) -> 
     return torch.argmax(up, dim=1).to(torch.int32)
 
 
-def _kernel_fn(dtype: torch.dtype):
-    name = _DTYPES[dtype]
+@lru_cache(maxsize=64)
+def plan(n: int, h: int, w: int, c: int, oh: int, ow: int,
+         align_corners: bool) -> WalkPlan | None:
+    """The walk's blocks (ops/_walk.walk_plan), lpp lanes a pixel
+    (`lanes_per_pixel`), with bands whose block fits in 56 KB of shared
+    memory (four blocks an SM); None where the walk does not take the
+    shape (more than 1024 classes, or a block that would need more than
+    the opt-in), which the direct kernel then takes. The window is staged
+    in fp32 whatever the logits' dtype, so the plan does not depend on it."""
+    if c > MAX_CLASSES:
+        return None
+    lpp = lanes_per_pixel(c, "upsample_argmax")
+    p = walk_plan(n, h, w, oh, ow, align_corners, lpp,
+                  lambda window: stage_bytes(c, window, lpp, 4), _SMEM_TARGET)
+    return p if p.smem <= SMEM_OPT_IN else None
+
+
+def _kernel_fn(name: str):
     if name not in _fns:
         from pidnet_tpu_torch.ops._build import library
 
         fn = getattr(library("upsample_argmax"), name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        n_ints = 7 if "direct" in name else 12
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * n_ints + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -51,7 +80,8 @@ def upsample_argmax(logits: torch.Tensor, out_hw, align_corners: bool) -> torch.
     """(N,h,w,C) float logits -> (N,oh,ow) int32 class map.
 
     On a CUDA tensor (contiguous NHWC, bf16 or fp32) this launches the
-    CUDA kernel; on a CPU tensor it runs `upsample_argmax_plain`."""
+    walk on `plan`'s blocks, or the direct kernel where the plan is None;
+    on a CPU tensor it runs `upsample_argmax_plain`."""
     global launches
     if logits.device.type == "cpu":
         return upsample_argmax_plain(logits, out_hw, align_corners)
@@ -59,7 +89,7 @@ def upsample_argmax(logits: torch.Tensor, out_hw, align_corners: bool) -> torch.
         raise ValueError(f"upsample_argmax: unsupported device {logits.device}")
     if logits.dim() != 4:
         raise ValueError(f"upsample_argmax: expected (N,h,w,C) logits, got {tuple(logits.shape)}")
-    if logits.dtype not in _DTYPES:
+    if logits.dtype not in _SUFFIX:
         raise TypeError(f"upsample_argmax: dtype {logits.dtype} not in (bfloat16, float32)")
     if not logits.is_contiguous():
         raise ValueError("upsample_argmax: logits must be contiguous NHWC")
@@ -67,12 +97,23 @@ def upsample_argmax(logits: torch.Tensor, out_hw, align_corners: bool) -> torch.
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if min(n, h, w, c, oh, ow) < 1:
         raise ValueError(f"upsample_argmax: empty shape {tuple(logits.shape)} -> {(oh, ow)}")
-    fn = _kernel_fn(logits.dtype)
-    with torch.cuda.device(logits.device):
+    align = int(bool(align_corners))
+    p = plan(n, h, w, c, oh, ow, bool(align_corners))
+    suffix = _SUFFIX[logits.dtype]
+    # switch devices only where needed: the switch's host time shows in
+    # back-to-back launches
+    on = (contextlib.nullcontext() if logits.device.index == torch.cuda.current_device()
+          else torch.cuda.device(logits.device))
+    with on:
         out = torch.empty((n, oh, ow), dtype=torch.int32, device=logits.device)
         stream = torch.cuda.current_stream(logits.device).cuda_stream
-        err = fn(logits.data_ptr(), out.data_ptr(), n, h, w, c, oh, ow, int(bool(align_corners)),
-                 stream)
+        if p is None:
+            err = _kernel_fn(f"upsample_argmax_direct_{suffix}")(
+                logits.data_ptr(), out.data_ptr(), n, h, w, c, oh, ow, align, stream)
+        else:
+            err = _kernel_fn(f"upsample_argmax_{suffix}")(
+                logits.data_ptr(), out.data_ptr(), n, h, w, c, oh, ow, align, p.band, p.tile,
+                p.lpp, p.window, p.threads, stream)
     if err != 0:
         raise RuntimeError(f"upsample_argmax kernel launch failed: cudaError {err}")
     launches += 1

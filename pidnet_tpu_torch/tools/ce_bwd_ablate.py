@@ -49,10 +49,11 @@ VARIANTS = {
 }
 
 
-def variant_source(name: str, variants: dict = VARIANTS, tool: str = "ce_bwd_ablate") -> str:
-    """The kernel's source with the variant's edits; raises if an edit
-    does not match exactly once."""
-    src = (_build.CSRC / "ce_front.cu").read_text()
+def variant_source(name: str, variants: dict = VARIANTS, tool: str = "ce_bwd_ablate",
+                   source: str = "ce_front") -> str:
+    """The kernel source csrc/<source>.cu with the variant's edits; raises
+    if an edit does not match exactly once."""
+    src = (_build.CSRC / f"{source}.cu").read_text()
     for old, new in variants[name]:
         if src.count(old) != 1:
             raise RuntimeError(f"{tool}: {name}: {old!r} found {src.count(old)} times")
@@ -61,15 +62,16 @@ def variant_source(name: str, variants: dict = VARIANTS, tool: str = "ce_bwd_abl
 
 
 def build_variants(variants: dict = VARIANTS, tool: str = "ce_bwd_ablate",
-                   fn_name: str = "ce_bwd_bf16", n_ptrs: int = 4) -> dict:
-    """Compile every variant at once (one nvcc each) into csrc/build/;
-    returns {name: the bf16 launch function `fn_name`, whose arguments are
-    `n_ptrs` pointers, 13 ints and the stream}."""
+                   fn_name: str = "ce_bwd_bf16", n_ptrs: int = 4, source: str = "ce_front",
+                   n_ints: int = 13) -> dict:
+    """Compile every variant of csrc/<source>.cu at once (one nvcc each)
+    into csrc/build/; returns {name: the bf16 launch function `fn_name`,
+    whose arguments are `n_ptrs` pointers, `n_ints` ints and the stream}."""
     _build.BUILD.mkdir(parents=True, exist_ok=True)
     headers = b"".join(p.read_bytes() for p in sorted(_build.CSRC.glob("*.cuh")))
+    sources = {name: variant_source(name, variants, tool, source) for name in variants}
     procs = {}
-    for name in variants:
-        src = variant_source(name, variants, tool)
+    for name, src in sources.items():  # every edit matched: start the builds
         key = src.encode() + headers + " ".join(_build.NVCC_FLAGS).encode()
         cu = _build.BUILD / f"{tool}-{name}-{hashlib.sha256(key).hexdigest()[:16]}.cu"
         so = cu.with_suffix(".so")
@@ -87,7 +89,7 @@ def build_variants(variants: dict = VARIANTS, tool: str = "ce_bwd_ablate",
             if proc.returncode != 0:
                 raise RuntimeError(f"{tool}: nvcc failed for {name}:\n{log}")
         fn = getattr(ctypes.CDLL(str(so)), fn_name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -121,6 +123,20 @@ def time_variants(fns: dict, args: tuple, tool: str = "ce_bwd_ablate") -> dict:
             raise RuntimeError(f"{tool}: {name} launch failed: error {err}")
         times[name] = time_ms(lambda: fn(*args))
     return times
+
+
+def device_times(fns: dict, args: tuple, kernel: str, calls: int = 20) -> dict:
+    """{variant: device ms a launch} of the kernels whose name holds
+    `kernel`, under torch.profiler over `calls` launches: the kernel
+    alone, where the host's time a launch sets the event window."""
+    from pidnet_tpu_torch.tools.speed import device_breakdown
+
+    out = {}
+    for name, fn in fns.items():
+        _, _, rows = device_breakdown(lambda _: fn(*args), None, torch.device("cuda"), calls,
+                                      top=None)
+        out[name] = sum(ms for k, ms, _ in rows if kernel in k)
+    return out
 
 
 def main() -> None:

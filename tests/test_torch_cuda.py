@@ -62,6 +62,71 @@ def test_upsample_argmax_kernel_matches_plain(cuda_device, dtype, align, shape, 
     assert torch.equal(got[confident], want[confident])
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("shape,out_hw", [((1, 16, 16, 100), (128, 128)),
+                                          ((1, 8, 8, 1100), (32, 32))])
+def test_upsample_argmax_lanes_and_direct_match_plain(cuda_device, dtype, align, shape, out_hw):
+    """100 classes (the walk, four lanes a pixel) and 1100 (above the walk's
+    1024: the direct kernel), one launch counted each, at the gate of
+    test_upsample_argmax_kernel_matches_plain."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy((rng.standard_normal(shape) * 2).astype(np.float32))
+    x = x.to(cuda_device, getattr(torch, dtype))
+    walk = TU.plan(*shape, *out_hw, align)
+    assert (walk is None) == (shape[-1] > 1024) and (walk is None or walk.lpp == 4)
+    before = TU.launches
+    got = TU.upsample_argmax(x, out_hw, align)
+    assert TU.launches == before + 1
+    want = TU.upsample_argmax_plain(x, out_hw, align)
+    up = torch.nn.functional.interpolate(x.permute(0, 3, 1, 2).float(), size=out_hw,
+                                         mode="bilinear", align_corners=align)
+    top2 = up.topk(2, dim=1).values
+    confident = (top2[:, 0] - top2[:, 1]) > 1e-3
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert (got == want).float().mean().item() >= 0.9999
+    assert torch.equal(got[confident], want[confident])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape,out_hw", [((1, 128, 256, 19), (1024, 2048)),
+                                          ((6, 128, 128, 19), (1024, 1024)),
+                                          ((1, 16, 16, 100), (128, 128)),
+                                          ((1, 8, 8, 1100), (32, 32))])
+def test_upsample_argmax_launches_are_bit_identical(cuda_device, dtype, shape, out_hw):
+    """Two launches on the same inputs give the same map: the serving and
+    training shapes, four lanes a pixel, and the direct kernel."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.standard_normal(shape) * 2).astype(np.float32))
+    x = x.to(cuda_device, getattr(torch, dtype))
+    a = TU.upsample_argmax(x, out_hw, True)
+    b = TU.upsample_argmax(x, out_hw, True)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("c,tied", [(19, (2, 7)), (19, (3, 11)), (100, (5, 6)),
+                                    (100, (2, 97))])
+def test_upsample_argmax_ties_go_to_the_lowest_class(cuda_device, dtype, align, c, tied):
+    """Two classes with the same logits at every source pixel, above all
+    others, tie at every output pixel, and the lower class wins: 5 apart (2
+    and 7) and 8 apart (3 and 11) in one lane's running compare, and in
+    different lanes at 100 classes (5 and 6; 2 and 97)."""
+    x = torch.from_numpy(_tied_logits((1, 16, 32, c), tied)).to(cuda_device, getattr(torch, dtype))
+    got = TU.upsample_argmax(x, (128, 256), align)
+    assert bool((got == min(tied)).all())
+
+
+def _tied_logits(shape, tied, seed=6) -> np.ndarray:
+    """Seeded logits in [-2, -1) but for the `tied` classes, which share one
+    field in [0, 1) (tests/test_torch_upsample_argmax.py::tied_logits)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2, -1, shape).astype(np.float32)
+    x[..., list(tied)] = rng.uniform(0, 1, shape[:-1] + (1,))
+    return x
+
+
 def test_upsample_argmax_wrapper_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         TU.upsample_argmax(torch.zeros((1, 3, 4, 4), device=cuda_device).permute(0, 2, 3, 1),
