@@ -53,11 +53,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    whose K4 launches must all be counted, and the plain version's time,
    the bound, and K4's device time under torch.profiler beside conv_ab's
    event window and the host's time to enqueue a call at each A/B shape;
-6. eval: PIDNet-S augment with the train2k weights, unfolded, eval mode,
-   on the two sample frames with the frozen fp32 goldens as labels (edges:
-   a 4-neighbour label change of the goldens, a cv2-free stand-in for the
-   dataset's Canny edges): engine.validate over batches [f0, f1], [f0]
-   (the last padded and masked), in fp32 and bf16 through make_eval_step.
+6. data: a Cityscapes tree in a temporary directory of the checkout (the
+   sample frames as leftImg8bit PNGs, the goldens mapped back to raw ids
+   as greyscale labelIds PNGs; train.lst each frame three times, val.lst
+   [f0, f1, f0]), configs/cityscapes/pidnet_small_cityscapes.yaml through
+   the port's load_config, and datasets and Loaders as the JAX package's
+   tools/train.py builds them on one process (batch 6 of 1024x1024
+   multi-scale, flipped crops; val batch 2 at 1024x2048). Gates: the
+   SHA-256 of a seeded gen_sample and of a full-resolution gen_edge_gt
+   equal the bytes that cv2 gives (DATA_SHA256); engine.train_one_epoch for
+   3 one-step epochs from the train2k weights with the loader's Canny
+   edges and engine.validate over the val loader give finite losses,
+   matrices that total the labelled pixels, and 1/2/2 K1/K2/K3 launches a
+   step and 1/2/0 a val batch. Then the same epochs with DATASET.CACHE on,
+   and the data layer's host times: read_png, gen_edge_gt and gen_sample
+   per frame, the loader's ms a batch cold (6 workers and 1) and cached,
+   and the loader-fed ms/step against tools/speed.py --train;
+7. eval: PIDNet-S augment with the train2k weights, unfolded, eval mode,
+   on the two sample frames with the frozen fp32 goldens as labels, from
+   the val loader over the same tree (cached; its batches equal the frames,
+   the goldens and their Canny edges): engine.validate over batches
+   [f0, f1], [f0] (the last padded and masked), in fp32 and bf16 through
+   make_eval_step.
    Gates: each matrix totals the real labelled pixels exactly, final-head
    pixel accuracy >= 0.995 in fp32 and >= 0.98 in bf16, per batch 3 K1
    launches in bf16 and 1 in fp32, 2 K2 and 0 K3. Then engine.testval
@@ -82,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import hashlib
 import json
 import logging
 import os
@@ -145,6 +163,18 @@ CONV_EPILOGUES = [dict(), dict(bias=True), dict(relu=True), dict(bias=True, relu
                   dict(stats=True), dict(bias=True, relu=True, stats=True)]
 BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 
+# SHA-256 of the data layer's bytes on the repo's own inputs: the boundary
+# target of the first sample frame's golden class map, and a seeded
+# training sample (image, label, edge) of that frame at Cityscapes' recipe.
+# tests/test_torch_data.py holds them against cv2 (5.0.0) and the JAX
+# package; the data phase holds the numpy of the machine that drives the
+# card to them.
+DATA_SEED = 1  # draws rand_scale 1.3, a crop and a flip
+DATA_SHA256 = {
+    "gen_edge_gt": "80054035daafe0e2d30fd9f295a5c3493ad69ff1e3bf956b0e66c2b0be359647",
+    "gen_sample": "1e835016bce04b56ee9b1c1d985b235560a92d22dccdc5437d140c0349b2e980",
+}
+
 SEED = 304  # the reference's tools/train.py seed, as scripts/train_run_artifact.py
 TRAIN_STEPS = 30
 TRAIN_POOL = 24  # crops made once and cycled, 4 batches of 6
@@ -154,6 +184,24 @@ TRAIN_NUM_ITERS = 2000  # the poly schedule's length, as scripts/train_run_artif
 def check(ok: bool, message: str) -> None:
     if not ok:
         raise RuntimeError(message)
+
+
+def data_digests(transforms, image: np.ndarray, label: np.ndarray, bgr: bool = False) -> dict:
+    """SHA-256 of `transforms.gen_edge_gt(label)` and of a gen_sample at
+    DATA_SEED (crop 1024x1024, base 2048, scales 0.5-2.1, flip, ignore 255)
+    of an RGB uint8 frame and its uint8 train-id map. `transforms` is
+    pidnet_tpu_torch.data.transforms, or, with `bgr`, a module of the same
+    functions that reads BGR frames."""
+    edge = transforms.gen_edge_gt(label)
+    sample = transforms.gen_sample(
+        np.random.default_rng(DATA_SEED), image[:, :, ::-1].copy() if bgr else image, label,
+        multi_scale=True, is_flip=True, base_size=2048, crop_size=(1024, 1024), scale_factor=16,
+        ignore_label=255, bgr_to_rgb=bgr)
+    digest = hashlib.sha256()
+    for a in sample:
+        digest.update(a.tobytes())
+    return {"gen_edge_gt": hashlib.sha256(edge.tobytes()).hexdigest(),
+            "gen_sample": digest.hexdigest()}
 
 
 def upsample_argmax_bound_ms(shape, out_hw, itemsize: int) -> tuple[float, str]:
@@ -804,28 +852,264 @@ def phase_train(torch, card: str) -> dict:
     print(f"train profile over 5 steps (torch.profiler): wall {wall:.2f} ms/step, device busy "
           f"{busy:.3f} ms/step ({busy / wall:.1%}); K3 ce_bwd_kernel {k3:.4f} ms/step "
           f"({k3 / busy:.2%} of busy), K2 ce_fwd_kernel {k2:.4f} ms/step [{card}]")
-    return counts
+    return counts, result["ms_per_step"]
 
 
-def edges_of(labels: np.ndarray) -> np.ndarray:
-    """1 where a pixel's label differs from one of its 4 neighbours: a
-    cv2-free stand-in for the dataset's Canny edge labels."""
-    e = np.zeros(labels.shape, bool)
-    dv = labels[:, 1:] != labels[:, :-1]
-    dh = labels[:, :, 1:] != labels[:, :, :-1]
-    e[:, 1:] |= dv
-    e[:, :-1] |= dv
-    e[:, :, 1:] |= dh
-    e[:, :, :-1] |= dh
-    return e.astype(np.float32)
+CITY_STEM = "_leftImg8bit.png"
 
 
-class _Loader:
-    def __init__(self, batches, batch_size):
-        self.batches, self.batch_size = batches, batch_size
+def build_city_tree(base: str) -> str:
+    """A Cityscapes tree under `base` from the repo's own files: the sample
+    frames as leftImg8bit PNGs, and their golden class maps mapped back to
+    raw ids through the inverse LUT as greyscale gtFine labelIds PNGs.
+    list/cityscapes/train.lst holds each frame three times (one batch of
+    6), val.lst the frames [f0, f1, f0] (two batches of 2, the last
+    partial). Returns the DATASET.ROOT."""
+    from pidnet_tpu_torch.data.cityscapes import _build_luts
+    from pidnet_tpu_torch.data.png import write_png
+
+    _, inverse = _build_luts(255)
+    goldens = np.load(GOLDENS)
+    lines = []
+    for name in goldens.files:
+        city = name.split("_")[0]
+        image = f"leftImg8bit/val/{city}/{name}"
+        label = f"gtFine/val/{city}/{name[:-len(CITY_STEM)]}_gtFine_labelIds.png"
+        for rel in (image, label):
+            os.makedirs(os.path.dirname(os.path.join(base, "cityscapes", rel)), exist_ok=True)
+        shutil.copyfile(os.path.join(SAMPLES, name), os.path.join(base, "cityscapes", image))
+        write_png(os.path.join(base, "cityscapes", label), inverse[goldens[name].astype(np.uint8)])
+        lines.append(f"{image}\t{label}")
+    os.makedirs(os.path.join(base, "list", "cityscapes"))
+    with open(os.path.join(base, "list", "cityscapes", "train.lst"), "w") as f:
+        f.write("\n".join(lines * 3))
+    with open(os.path.join(base, "list", "cityscapes", "val.lst"), "w") as f:
+        f.write("\n".join(lines + lines[:1]))
+    return base
+
+
+def data_config(root: str, *opts: str):
+    """configs/cityscapes/pidnet_small_cityscapes.yaml through the port's
+    load_config, DATASET.ROOT and the list files pointed at `root`."""
+    from pidnet_tpu_torch.config import load_config
+
+    return load_config(os.path.join(ROOT, "configs", "cityscapes", "pidnet_small_cityscapes.yaml"),
+                       ["DATASET.ROOT", root, "DATASET.TRAIN_SET", "list/cityscapes/train.lst",
+                        "DATASET.TEST_SET", "list/cityscapes/val.lst", *opts])
+
+
+def build_loaders(cfg, val_cache: bool = False):
+    """(train dataset, train loader, val loader) as tools/train.py builds them
+    on one process; the val batch is 2."""
+    from pidnet_tpu_torch.data import Loader, build_dataset
+
+    common = dict(root=cfg.DATASET.ROOT, num_classes=cfg.DATASET.NUM_CLASSES,
+                  ignore_label=cfg.TRAIN.IGNORE_LABEL, seed=cfg.SEED)
+    train = build_dataset(cfg.DATASET.DATASET, list_path=cfg.DATASET.TRAIN_SET,
+                          multi_scale=cfg.TRAIN.MULTI_SCALE, flip=cfg.TRAIN.FLIP,
+                          base_size=cfg.TRAIN.BASE_SIZE,
+                          crop_size=(cfg.TRAIN.IMAGE_SIZE[1], cfg.TRAIN.IMAGE_SIZE[0]),
+                          scale_factor=cfg.TRAIN.SCALE_FACTOR, cache=cfg.DATASET.CACHE,
+                          cache_gb=cfg.DATASET.CACHE_GB, **common)
+    val = build_dataset(cfg.DATASET.DATASET, list_path=cfg.DATASET.TEST_SET, multi_scale=False,
+                        flip=False, base_size=cfg.TEST.BASE_SIZE,
+                        crop_size=(cfg.TEST.IMAGE_SIZE[1], cfg.TEST.IMAGE_SIZE[0]),
+                        cache=val_cache, **common)
+    train_loader = Loader(train, cfg.TRAIN.BATCH_SIZE_PER_GPU, shuffle=cfg.TRAIN.SHUFFLE,
+                          drop_last=True, num_workers=cfg.WORKERS, seed=cfg.SEED)
+    val_loader = Loader(val, 2, shuffle=False, drop_last=False, num_workers=cfg.WORKERS)
+    return train, TimedLoader(train_loader), TimedLoader(val_loader)
+
+
+class TimedLoader:
+    """A Loader that also records how long its consumer waited for each
+    batch (host ms in `waits`); everything else is the Loader's."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.waits: list[float] = []
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __len__(self) -> int:
+        return len(self.loader)
 
     def __iter__(self):
-        return iter(self.batches)
+        batches = iter(self.loader)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(batches)
+                except StopIteration:
+                    return
+                self.waits.append((time.perf_counter() - t0) * 1e3)
+                yield batch
+        finally:
+            batches.close()
+
+
+def host_frame_ms(fn, repeats: int = 3) -> float:
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_data(torch, card: str, tree: str, speed_ms: float) -> dict:
+    """The YAML -> dataset -> loader -> train step and validate path over the
+    Cityscapes tree; returns the launch counts of K1-K3 on it."""
+    from pidnet_tpu_torch import engine
+    from pidnet_tpu_torch.convert.weights import load_npz
+    from pidnet_tpu_torch.data import transforms
+    from pidnet_tpu_torch.data.png import read_png
+    from pidnet_tpu_torch.losses.criterion import FullLoss
+    from pidnet_tpu_torch.metrics import acc_from_cm
+    from pidnet_tpu_torch.models import pidnet as M
+    from pidnet_tpu_torch.ops import ce_front as cf
+    from pidnet_tpu_torch.ops import upsample_argmax as ua
+    from pidnet_tpu_torch.train.step import TrainState, make_eval_step, make_train_step
+
+    goldens = np.load(GOLDENS)
+    name = goldens.files[0]
+    frame_path = os.path.join(SAMPLES, name)
+    label_path = os.path.join(tree, "cityscapes", "gtFine", "val", "frankfurt",
+                              name[:-len(CITY_STEM)] + "_gtFine_labelIds.png")
+    image, label = read_png(frame_path), goldens[name].astype(np.uint8)
+    digests = data_digests(transforms, image, label)
+    print(f"data: SHA-256 here {digests}, cv2's (DATA_SHA256) {DATA_SHA256}")
+    check(digests == DATA_SHA256, "the data layer's bytes differ from cv2's")
+
+    recipe = dict(multi_scale=True, is_flip=True, base_size=2048, crop_size=(1024, 1024),
+                  scale_factor=16, ignore_label=255, bgr_to_rgb=False)
+    edge = transforms.gen_edge_gt(label)
+    times = {
+        "read_png image": host_frame_ms(lambda: read_png(frame_path)),
+        "read_png labelIds": host_frame_ms(lambda: read_png(label_path)),
+        "gen_edge_gt": host_frame_ms(lambda: transforms.gen_edge_gt(label)),
+        "gen_sample": host_frame_ms(lambda: transforms.gen_sample(
+            np.random.default_rng(DATA_SEED), image, label, edge=edge, **recipe)),
+    }
+    print("data: host ms per 1024x2048 frame (median of 3, one thread): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+          + f" (gen_sample at DATA_SEED's scale 1.3, edge given) [{card}; host time]")
+
+    cfg = data_config(tree)
+    train_ds, train_loader, val_loader = build_loaders(cfg)
+    dev = torch.device("cuda")
+    spec = M.spec_for("pidnet_s", cfg.DATASET.NUM_CLASSES, augment=True)
+    sd = load_npz(WEIGHTS)
+    ts = TrainState.create(M.build(spec, sd, device=dev, train=True))
+    loss_fn = FullLoss(num_outputs=cfg.MODEL.NUM_OUTPUTS, align_corners=cfg.MODEL.ALIGN_CORNERS,
+                       ignore_label=cfg.TRAIN.IGNORE_LABEL, class_weights=train_ds.class_weights,
+                       use_ohem=cfg.LOSS.USE_OHEM, ohem_thres=cfg.LOSS.OHEMTHRES,
+                       ohem_kept=cfg.LOSS.OHEMKEEP, balance_weights=cfg.LOSS.BALANCE_WEIGHTS,
+                       sb_weights=cfg.LOSS.SB_WEIGHTS)
+    compute = torch.bfloat16 if cfg.XLA.BF16_TRAIN else None
+    step = make_train_step(ts, loss_fn, momentum=cfg.TRAIN.MOMENTUM, weight_decay=cfg.TRAIN.WD,
+                           nesterov=cfg.TRAIN.NESTEROV, compute_dtype=compute)
+    epoch_iters = len(train_loader)
+    num_iters = cfg.TRAIN.END_EPOCH * epoch_iters
+    print(f"data: {cfg.DATASET.DATASET} from {cfg.DATASET.TRAIN_SET} ({len(train_ds)} samples, "
+          f"batch {cfg.TRAIN.BATCH_SIZE_PER_GPU} of {cfg.TRAIN.IMAGE_SIZE[1]}x"
+          f"{cfg.TRAIN.IMAGE_SIZE[0]} crops, scales 0.5-{0.5 + cfg.TRAIN.SCALE_FACTOR / 10}, flip, "
+          f"{cfg.WORKERS} workers, cache {cfg.DATASET.CACHE}) and {cfg.DATASET.TEST_SET} (batch 2 "
+          f"of {cfg.TEST.IMAGE_SIZE[1]}x{cfg.TEST.IMAGE_SIZE[0]}); PIDNet-S augment, train2k "
+          f"weights, {'bf16' if compute else 'fp32'}, LR {cfg.TRAIN.LR} over {num_iters} iters")
+
+    history = []
+
+    def recording_step(*args):
+        metrics = step(*args)
+        history.append(metrics)
+        return metrics
+
+    writer = {"writer": _NoWriter(), "train_global_steps": 0, "valid_global_steps": 0}
+    cms = []
+    ua.launches = cf.fwd_launches = cf.bwd_launches = 0  # the data path starts here
+    walls, done = [], 0
+    for epoch in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, n = engine.train_one_epoch(cfg, epoch, epoch_iters, num_iters, cfg.TRAIN.LR,
+                                      train_loader, recording_step, ts, writer)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        done += n
+    eval_step = make_eval_step(ts.model.eval(), loss_fn, num_classes=cfg.DATASET.NUM_CLASSES)
+
+    def recording_eval(*batch):
+        metrics, batch_cms = eval_step(*batch)
+        cms.append(batch_cms.cpu().numpy())
+        return metrics, batch_cms
+
+    logging.getLogger("pidnet_tpu_torch").setLevel(logging.WARNING)  # its IoU lines
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ave_loss, miou, _ = engine.validate(cfg, val_loader, recording_eval, writer)
+    torch.cuda.synchronize()
+    val_wall = (time.perf_counter() - t0) * 1e3
+    counts = {"upsample_argmax": ua.launches, "ce_front_fwd": cf.fwd_launches,
+              "ce_front_bwd": cf.bwd_launches}
+    losses = [float(m["loss"]) for m in history]
+    batches = len(cms)
+    pixels = label.size
+    totals = [[int(c.sum()) for c in batch] for batch in cms]
+    acc = acc_from_cm(sum(batch[-1] for batch in cms))[0]
+    print(f"data: train_one_epoch x 3 from the loader: {done} steps, losses "
+          f"{[round(v, 4) for v in losses]}, acc {[round(float(m['acc']), 4) for m in history]}; "
+          f"per epoch {[round(w, 1) for w in walls]} ms, of which waiting for the loader "
+          f"{[round(w, 1) for w in train_loader.waits]} ms (cache off, every batch decoded) "
+          f"[{card}]")
+    print(f"data: validate the trained model (fp32) over {batches} val batches from the loader: "
+          f"{val_wall:.1f} ms ({val_wall / batches:.1f} ms/batch), waiting for the loader "
+          f"{[round(w, 1) for w in val_loader.waits]} ms; loss {ave_loss:.6f}, final-head pixel "
+          f"acc vs goldens {acc:.6f}, mIoU {miou:.6f}; matrix totals {totals}; launches {counts}")
+    check(done == 3 and len(losses) == 3 and all(np.isfinite(losses)) and np.isfinite(ave_loss),
+          f"data path: losses {losses}, val loss {ave_loss}")
+    check(totals == [[2 * pixels] * 2, [pixels] * 2], f"data path: matrix totals {totals}")
+    want = {"upsample_argmax": done + batches, "ce_front_fwd": 2 * done + 2 * batches,
+            "ce_front_bwd": 2 * done}
+    check(counts == want, f"data path: launches {counts}, want {want} (1/2/2 a train step, "
+          f"1/2/0 a val batch)")
+
+    # the same path with DATASET.CACHE on: the first epoch decodes and fills
+    # the cache, the next two augment cached frames
+    cfg_c = data_config(tree, "DATASET.CACHE", "true")
+    train_c, loader_c, _ = build_loaders(cfg_c)
+    walls_c = []
+    for epoch in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.train_one_epoch(cfg_c, epoch, epoch_iters, num_iters, cfg.TRAIN.LR, loader_c,
+                               recording_step, ts, writer)
+        torch.cuda.synchronize()
+        walls_c.append((time.perf_counter() - t0) * 1e3)
+    losses = [float(m["loss"]) for m in history[3:]]
+    check(len(losses) == 3 and all(np.isfinite(losses)), f"data path, cached: losses {losses}")
+    cold, cached = walls[1:], walls_c[1:]
+    print(f"data: with DATASET.CACHE: per epoch {[round(w, 1) for w in walls_c]} ms, waiting for "
+          f"the loader {[round(w, 1) for w in loader_c.waits]} ms (the first fills the cache: "
+          f"{train_c._cache.stats()}); losses {[round(v, 4) for v in losses]}")
+    print(f"data: loader-fed ms/step (epochs 2-3, one step each) cache off "
+          f"{statistics.fmean(cold):.1f}, cache on {statistics.fmean(cached):.1f}, against "
+          f"{speed_ms:.2f} ms/step on pre-built device batches (tools/speed.py --train): the "
+          f"loader sets the pace {'in both' if min(cached) > 2 * speed_ms else 'cold only'} "
+          f"[{card}]")
+    # the same cold train batch from one worker: what the threads share
+    _, single, _ = build_loaders(data_config(tree, "WORKERS", "1"))
+    for _ in single:
+        pass
+    print(f"data: loader ms a batch: train (6x1024x1024) cold "
+          f"{statistics.fmean(train_loader.waits[1:]):.1f} ({cfg.WORKERS} workers; "
+          f"{single.waits[0]:.1f} from 1 worker), cached {statistics.fmean(loader_c.waits[1:]):.1f}; "
+          f"val (2x1024x2048) cold {val_loader.waits[0]:.1f} [{card}; host time]")
+    del ts, step, eval_step
+    torch.cuda.empty_cache()
+    return counts
 
 
 def numpy_scores(preds: list, labels: list) -> tuple[float, float]:
@@ -854,15 +1138,15 @@ def profile(title: str, fn, x, card: str, steps: int = 3) -> None:
         print(f"  {ms:8.3f} ms {count:6.1f}x  {name[:100]}")
 
 
-def phase_eval(torch, card: str) -> dict:
-    """Validate, testval and TTA on the sample frames; returns the launch
-    counts of K1-K3 on these paths."""
+def phase_eval(torch, card: str, tree: str) -> dict:
+    """Validate over the val loader, then testval and TTA on the sample
+    frames; returns the launch counts of K1-K3 on these paths."""
     from pidnet_tpu_torch import engine
     from pidnet_tpu_torch.convert.fold import fold_state_dict
     from pidnet_tpu_torch.convert.weights import load_npz
     from pidnet_tpu_torch.data.cityscapes import CLASS_WEIGHTS
     from pidnet_tpu_torch.data.png import read_png
-    from pidnet_tpu_torch.data.transforms import input_transform
+    from pidnet_tpu_torch.data.transforms import gen_edge_gt, input_transform
     from pidnet_tpu_torch.losses.criterion import FullLoss
     from pidnet_tpu_torch.metrics import acc_from_cm, iou_from_cm
     from pidnet_tpu_torch.models import pidnet as M
@@ -876,16 +1160,28 @@ def phase_eval(torch, card: str) -> dict:
     images = np.concatenate([input_transform(read_png(os.path.join(SAMPLES, k)),
                                              bgr_to_rgb=False)[None] for k in names])
     labels = np.stack([goldens[k].astype(np.int32) for k in names])
-    edges = edges_of(labels)
     pixels = labels[0].size
+    # the val loader over the tree (decoded-sample cache on: the runs below
+    # decode each frame once); its batches are the frames as read here, the
+    # goldens as labels and their Canny edges
+    _, _, loader = build_loaders(data_config(tree), val_cache=True)
+    edges = np.stack([gen_edge_gt(goldens[k].astype(np.uint8)).astype(np.float32) for k in names])
+    order = [0, 1, 0]
+    seen = [b[:3] for b in loader]
+    want = [(images[order[i:i + 2]], labels[order[i:i + 2]], edges[order[i:i + 2]])
+            for i in (0, 2)]
+    same = len(seen) == 2 and all(np.array_equal(a, b) for got, exp in zip(seen, want)
+                                  for a, b in zip(got, exp))
+    print(f"eval: the val loader's batches [f0, f1], [f0] equal the frames, goldens and their "
+          f"edges: {same}; first pass (decodes) {[round(w, 1) for w in loader.waits]} ms waiting")
+    check(same, "the val loader's batches differ from the frames and goldens")
+    del seen, want
     spec = M.spec_for("pidnet_s", 19, augment=True)
     model = M.build(spec, sd, device="cuda").to(memory_format=torch.channels_last)
     loss_fn = FullLoss(ignore_label=255, class_weights=CLASS_WEIGHTS, use_ohem=True,
                        ohem_thres=0.9, ohem_kept=131072, balance_weights=(0.4, 1.0),
                        sb_weights=1.0)
     cfg = engine.config(output_index=1, ignore_label=255)
-    loader = _Loader([(images, labels, edges, None, None),
-                      (images[:1], labels[:1], edges[:1], None, None)], 2)
     counts = {"upsample_argmax": 0, "ce_front_fwd": 0, "ce_front_bwd": 0}
     logging.getLogger("pidnet_tpu_torch").setLevel(logging.WARNING)  # the lines below say it
     runs = [(None, 1, 0.995)] * 2 + [(torch.bfloat16, 3, 0.98)] * 2  # the first of each warms up
@@ -899,6 +1195,7 @@ def phase_eval(torch, card: str) -> dict:
             return metrics, batch_cms
 
         ua.launches = cf.fwd_launches = cf.bwd_launches = 0  # the eval path starts here
+        loader.waits.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ave_loss, miou, _ = engine.validate(cfg, loader, recording_step,
@@ -912,8 +1209,9 @@ def phase_eval(torch, card: str) -> dict:
         totals = [[int(c.sum()) for c in batch] for batch in cms]
         acc = acc_from_cm(sum(batch[-1] for batch in cms))[0]
         name = "fp32" if dtype is None else "bf16"
-        print(f"eval validate {name}: batches [f0, f1], [f0] (padded, masked, from host arrays) "
-              f"in {wall * 1e3:.1f} ms ({wall * 1e3 / len(cms):.1f} ms/batch) [{card}]; loss "
+        print(f"eval validate {name}: batches [f0, f1], [f0] (padded, masked, from the cached "
+              f"loader) in {wall * 1e3:.1f} ms ({wall * 1e3 / len(cms):.1f} ms/batch, of which "
+              f"waiting for the loader {sum(loader.waits) / len(cms):.1f}) [{card}]; loss "
               f"{ave_loss:.6f}, final-head mIoU vs goldens {miou:.6f}, pixel acc "
               f"{acc:.6f} (>= {gate}), p-head mIoU {iou_from_cm(sum(b[0] for b in cms))[1]:.6f}; "
               f"matrix totals {totals}; launches {got}")
@@ -1031,16 +1329,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_slice(torch, card)
     served = ua.launches
-    counts = phase_train(torch, card)
-    evals = phase_eval(torch, card)
-    k1["launches"] = served + counts["upsample_argmax"] + evals["upsample_argmax"]
-    k2["launches"] = counts["ce_front_fwd"] + evals["ce_front_fwd"]
-    k3["launches"] = counts["ce_front_bwd"] + evals["ce_front_bwd"]
+    counts, speed_ms = phase_train(torch, card)
+    tree = build_city_tree(tempfile.mkdtemp(prefix="chip_smoke_data_", dir=ROOT))
+    try:
+        loaded = phase_data(torch, card, tree, speed_ms)
+        evals = phase_eval(torch, card, tree)
+    finally:
+        shutil.rmtree(tree)
+    paths = (counts, loaded, evals)
+    k1["launches"] = served + sum(c["upsample_argmax"] for c in paths)
+    k2["launches"] = sum(c["ce_front_fwd"] for c in paths)
+    k3["launches"] = sum(c["ce_front_bwd"] for c in paths)
     print(f"launches on the main paths: upsample_argmax {served} serving + "
-          f"{counts['upsample_argmax']} training + {evals['upsample_argmax']} eval, "
-          f"ce_front_fwd {counts['ce_front_fwd']} training + {evals['ce_front_fwd']} eval, "
-          f"ce_front_bwd {counts['ce_front_bwd']} training + {evals['ce_front_bwd']} eval, "
-          f"conv3x3 {k4['launches']} conv_ab")
+          f"{counts['upsample_argmax']} training + {loaded['upsample_argmax']} data + "
+          f"{evals['upsample_argmax']} eval, ce_front_fwd {counts['ce_front_fwd']} training + "
+          f"{loaded['ce_front_fwd']} data + {evals['ce_front_fwd']} eval, ce_front_bwd "
+          f"{counts['ce_front_bwd']} training + {loaded['ce_front_bwd']} data + "
+          f"{evals['ce_front_bwd']} eval, conv3x3 {k4['launches']} conv_ab")
 
     print(card)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))

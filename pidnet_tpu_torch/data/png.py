@@ -1,9 +1,10 @@
 """Read and write 8-bit PNG images with zlib and numpy alone.
 
 The machine that serves the port has neither cv2 nor PIL. `read_png`
-decodes non-interlaced 8-bit RGB images (colour type 2) with any of the
-five PNG row filters and returns (H, W, 3) uint8 in RGB order (not cv2's
-BGR). `write_png` writes (H, W, 3) uint8 RGB with filter 0.
+decodes non-interlaced 8-bit greyscale (colour type 0) and RGB (colour
+type 2) images with any of the five PNG row filters and returns (H, W)
+or (H, W, 3) uint8, RGB in RGB order (not cv2's BGR). `write_png` writes
+(H, W) uint8 greyscale or (H, W, 3) uint8 RGB with filter 0.
 
 Filters 3 (Average) and 4 (Paeth) make each byte depend on its left,
 upper and upper-left neighbours, so `_unfilter` walks the anti-diagonals
@@ -19,7 +20,8 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_RGB = 2  # colour type: 8-bit samples, 3 per pixel
+_GREY, _RGB = 0, 2  # colour types: 1 and 3 samples a pixel
+_SAMPLES = {_GREY: 1, _RGB: 3}
 
 
 def _chunks(data: bytes):
@@ -63,7 +65,8 @@ def _unfilter(raw: np.ndarray, filters: np.ndarray) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit non-interlaced RGB PNG -> (H, W, 3) uint8."""
+    """Decode an 8-bit non-interlaced PNG: greyscale -> (H, W) uint8, RGB
+    -> (H, W, 3) uint8."""
     with open(path, "rb") as f:
         data = f.read()
     header, idat = None, []
@@ -75,21 +78,28 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype != _RGB or interlace != 0:
+    if depth != 8 or ctype not in _SAMPLES or interlace != 0:
         raise ValueError(
-            f"{path}: only 8-bit non-interlaced RGB PNGs are supported "
+            f"{path}: only 8-bit non-interlaced greyscale or RGB PNGs are supported "
             f"(bit depth {depth}, colour type {ctype}, interlace {interlace})"
         )
+    bpp = _SAMPLES[ctype]
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = rows[: h * (w * 3 + 1)].reshape(h, w * 3 + 1)
-    return _unfilter(rows[:, 1:].reshape(h, w, 3), rows[:, 0])
+    rows = rows[: h * (w * bpp + 1)].reshape(h, w * bpp + 1)
+    image = _unfilter(rows[:, 1:].reshape(h, w, bpp), rows[:, 0])
+    return image[:, :, 0] if ctype == _GREY else image
 
 
 def write_png(path: str, image: np.ndarray) -> None:
-    """Write (H, W, 3) uint8 RGB, filter 0."""
+    """Write (H, W) uint8 greyscale or (H, W, 3) uint8 RGB, filter 0."""
     image = np.ascontiguousarray(image, dtype=np.uint8)
-    if image.ndim != 3 or image.shape[2] != 3:
-        raise ValueError(f"write_png: expected (H,W,3) uint8 RGB, got {image.shape}")
+    if image.ndim == 2:
+        ctype = _GREY
+    elif image.ndim == 3 and image.shape[2] == 3:
+        ctype = _RGB
+    else:
+        raise ValueError(f"write_png: expected (H,W) greyscale or (H,W,3) RGB uint8, got "
+                         f"{image.shape}")
     h, w = image.shape[:2]
     rows = np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, -1)], axis=1)
 
@@ -97,7 +107,7 @@ def write_png(path: str, image: np.ndarray) -> None:
         crc = zlib.crc32(kind + body) & 0xFFFFFFFF
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", crc)
 
-    header = struct.pack(">IIBBBBB", w, h, 8, _RGB, 0, 0, 0)
+    header = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(_SIGNATURE + chunk(b"IHDR", header)
                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))

@@ -122,11 +122,19 @@ def test_png_round_trip_and_all_filters(tmp_path, rng):
     theirs = str(tmp_path / "theirs.png")
     cv2.imwrite(theirs, smooth[:, :, ::-1])
     np.testing.assert_array_equal(read_png(theirs), smooth)
+    # 8-bit greyscale (colour type 0) both ways, cv2's filters included
+    write_png(str(tmp_path / "gray.png"), img[:, :, 0])
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "gray.png"), cv2.IMREAD_UNCHANGED),
+                                  img[:, :, 0])
+    cv2.imwrite(str(tmp_path / "gray_cv2.png"), smooth[:, :, 1])
+    got = read_png(str(tmp_path / "gray_cv2.png"))
+    assert got.shape == (40, 64) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, smooth[:, :, 1])
     with pytest.raises(ValueError, match="RGB"):
-        write_png(str(tmp_path / "gray.png"), img[:, :, 0])
-    cv2.imwrite(str(tmp_path / "gray.png"), img[:, :, 0])
+        write_png(str(tmp_path / "two.png"), img[:, :, :2])
+    cv2.imwrite(str(tmp_path / "rgba.png"), np.dstack([img, img[:, :, :1]]))
     with pytest.raises(ValueError, match="RGB"):
-        read_png(str(tmp_path / "gray.png"))
+        read_png(str(tmp_path / "rgba.png"))
 
 
 def test_input_transform_matches_golden_recipe(rng):
@@ -178,15 +186,15 @@ def test_entry_points_default_to_cuda_and_never_fall_back(trained):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import without jax or
-    pidnet_tpu."""
+    """Every module of the port, and chip_smoke.py, import without jax,
+    pidnet_tpu, cv2 or PIL (the card's machine has neither of the last
+    two)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import pidnet_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(pidnet_tpu_torch.__path__, 'pidnet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "       or k == 'pidnet_tpu' or k.startswith('pidnet_tpu.')]\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'pidnet_tpu', 'cv2', 'PIL')]\n"
         "n = sum(k.startswith('pidnet_tpu_torch') for k in sys.modules)\n"
         "print(n, bad)\n"
         "sys.exit(1 if bad or n < 15 else 0)\n"
