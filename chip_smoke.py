@@ -87,7 +87,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    docs/DESIGN.md round 5); and identity TTA in fp32 against
    engine.make_inference within 0.01 in clipped log-probability. A bf16
    val batch and a 6-scale + flip TTA frame are profiled (device busy and
-   their largest kernels).
+   their largest kernels);
+8. cli: the port's CLIs in-process over the same tree, outputs in it:
+   tools.convert turns the train2k .npz into a port .pt and, with --fold, a
+   folded .pt; tools.train (the PIDNet-S YAML, MODEL.PRETRAINED the .npz,
+   END_EPOCH 2, WORKERS 1: one step of 6x1024x1024 bf16 and a validate of 3
+   frames an epoch) writes checkpoint.pt, best.pt and final_state.pt, every
+   logged loss finite, 1/2/2 K1/K2/K3 launches a step and 1/2/0 a val
+   batch; the same command with TRAIN.RESUME true and END_EPOCH 3 runs
+   exactly one more step (checkpoint epoch 3); tools.eval on the val list
+   [f0, f1, f0] with the converted .pt unfolded in fp32 (pixel accuracy vs
+   the goldens >= 0.995, no K1), with --fold-bn in bf16 (>= 0.98, one K1
+   launch a frame) and with TEST.FLIP_TEST (finite), each with scores equal
+   to engine.testval called directly with a closure built the same way;
+   the folded .pt with --fold-bn gives the class maps of the second run
+   bit for bit, and without it the CLI exits non-zero. Each run's host
+   seconds, ms per step and ms per testval frame.
 
 The line before the last is a JSON object with one entry per kernel, its
 launches counted over every path that ran it; the last line is
@@ -99,6 +114,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import glob
 import hashlib
 import json
 import logging
@@ -899,24 +915,19 @@ def data_config(root: str, *opts: str):
 
 
 def build_loaders(cfg, val_cache: bool = False):
-    """(train dataset, train loader, val loader) as tools/train.py builds them
-    on one process; the val batch is 2."""
+    """(train dataset, train loader, val loader): the train CLI's
+    (tools/train.build_data), but for val batches of 2 from a val dataset
+    whose decoded-sample cache is `val_cache`."""
     from pidnet_tpu_torch.data import Loader, build_dataset
+    from pidnet_tpu_torch.tools.train import build_data
 
-    common = dict(root=cfg.DATASET.ROOT, num_classes=cfg.DATASET.NUM_CLASSES,
-                  ignore_label=cfg.TRAIN.IGNORE_LABEL, seed=cfg.SEED)
-    train = build_dataset(cfg.DATASET.DATASET, list_path=cfg.DATASET.TRAIN_SET,
-                          multi_scale=cfg.TRAIN.MULTI_SCALE, flip=cfg.TRAIN.FLIP,
-                          base_size=cfg.TRAIN.BASE_SIZE,
-                          crop_size=(cfg.TRAIN.IMAGE_SIZE[1], cfg.TRAIN.IMAGE_SIZE[0]),
-                          scale_factor=cfg.TRAIN.SCALE_FACTOR, cache=cfg.DATASET.CACHE,
-                          cache_gb=cfg.DATASET.CACHE_GB, **common)
-    val = build_dataset(cfg.DATASET.DATASET, list_path=cfg.DATASET.TEST_SET, multi_scale=False,
-                        flip=False, base_size=cfg.TEST.BASE_SIZE,
+    train, train_loader, _ = build_data(cfg, cfg.SEED)
+    val = build_dataset(cfg.DATASET.DATASET, root=cfg.DATASET.ROOT,
+                        list_path=cfg.DATASET.TEST_SET, num_classes=cfg.DATASET.NUM_CLASSES,
+                        multi_scale=False, flip=False, ignore_label=cfg.TRAIN.IGNORE_LABEL,
+                        base_size=cfg.TEST.BASE_SIZE,
                         crop_size=(cfg.TEST.IMAGE_SIZE[1], cfg.TEST.IMAGE_SIZE[0]),
-                        cache=val_cache, **common)
-    train_loader = Loader(train, cfg.TRAIN.BATCH_SIZE_PER_GPU, shuffle=cfg.TRAIN.SHUFFLE,
-                          drop_last=True, num_workers=cfg.WORKERS, seed=cfg.SEED)
+                        seed=cfg.SEED, cache=val_cache)
     val_loader = Loader(val, 2, shuffle=False, drop_last=False, num_workers=cfg.WORKERS)
     return train, TimedLoader(train_loader), TimedLoader(val_loader)
 
@@ -1299,6 +1310,193 @@ def phase_eval(torch, card: str, tree: str) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def timed_closures(torch, module, names, times: list, maps: list):
+    """While active, every closure that one of the factories `module.<name>`
+    makes records the host ms of each call (ending in a sync) in `times`,
+    and a tensor result's class map (the argmax of probabilities) on the
+    host in `maps`."""
+    factories = {name: getattr(module, name) for name in names}
+
+    def wrap(factory):
+        def timed_factory(*args, **kwargs):
+            fn = factory(*args, **kwargs)
+
+            def timed(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if torch.is_tensor(out):
+                    maps.append((out if out.ndim == 3 else out.argmax(-1)).cpu().numpy())
+                return out
+
+            return timed
+
+        return timed_factory
+
+    for name, factory in factories.items():
+        setattr(module, name, wrap(factory))
+    try:
+        yield
+    finally:
+        for name, factory in factories.items():
+            setattr(module, name, factory)
+
+
+def logged_losses(run_dir: str) -> list:
+    """Every "Loss: x" in the train logs of a run directory."""
+    losses = []
+    for path in sorted(glob.glob(os.path.join(run_dir, "*_train.log"))):
+        with open(path) as f:
+            losses += [float(v.split(",")[0]) for v in f.read().split("Loss: ")[1:]]
+    return losses
+
+
+def phase_cli(torch, card: str, tree: str) -> dict:
+    """The port's CLIs in-process over the Cityscapes tree: convert, train,
+    resume and five evals; returns the launch counts of K1-K3 in the CLI
+    runs (each counted from 0 just before the run)."""
+    from pidnet_tpu_torch import engine
+    from pidnet_tpu_torch.config import load_config
+    from pidnet_tpu_torch.convert.fold import fold_state_dict
+    from pidnet_tpu_torch.data import Loader, build_dataset
+    from pidnet_tpu_torch.ops import ce_front as cf
+    from pidnet_tpu_torch.ops import upsample_argmax as ua
+    from pidnet_tpu_torch.tools import common, convert, train
+    from pidnet_tpu_torch.tools import eval as eval_tool
+    from pidnet_tpu_torch.train import checkpoint as ckpt
+
+    work = os.path.join(tree, "cli")
+    yaml = os.path.join(ROOT, "configs", "cityscapes", "pidnet_small_cityscapes.yaml")
+    cfg_name = "pidnet_small_cityscapes"
+    run_dir = os.path.join(work, "output", "cityscapes", cfg_name)
+    base = ["DATASET.ROOT", tree, "DATASET.TRAIN_SET", "list/cityscapes/train.lst",
+            "DATASET.TEST_SET", "list/cityscapes/val.lst", "OUTPUT_DIR",
+            os.path.join(work, "output"), "LOG_DIR", os.path.join(work, "log")]
+    counts = {"upsample_argmax": 0, "ce_front_fwd": 0, "ce_front_bwd": 0}
+
+    def run(main, argv):
+        """main(argv) with every kernel's count at 0 just before; returns
+        (its result, its launches, host seconds)."""
+        ua.launches = cf.fwd_launches = cf.bwd_launches = 0
+        t0 = time.perf_counter()
+        out = main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {"upsample_argmax": ua.launches, "ce_front_fwd": cf.fwd_launches,
+               "ce_front_bwd": cf.bwd_launches}
+        for k in counts:
+            counts[k] += got[k]
+        return out, got, secs
+
+    port_pt = os.path.join(work, "train2k.pt")
+    folded_pt = os.path.join(work, "train2k_folded.pt")
+    t_phase = t0 = time.perf_counter()
+    convert.main([WEIGHTS, port_pt])
+    convert.main([WEIGHTS, folded_pt, "--fold"])
+    print(f"cli convert: {WEIGHTS} -> port .pt and folded .pt in "
+          f"{time.perf_counter() - t0:.2f} s (host)")
+    check(not common.is_folded_checkpoint(port_pt) and common.is_folded_checkpoint(folded_pt),
+          "convert: the folded tag")
+
+    # train: one step an epoch (6 samples, batch 6), a validate of 3 frames
+    # (val batch 1) each epoch; WORKERS 1: six loader threads decode a cold
+    # batch 4.4x slower than one (PERF.md section 5)
+    train_opts = [*base, "MODEL.PRETRAINED", WEIGHTS, "WORKERS", "1", "TRAIN.END_EPOCH", "2"]
+    val_frames = 3
+    for tag, extra, steps in (("train", [], 2), ("resume", ["TRAIN.RESUME", "true",
+                                                            "TRAIN.END_EPOCH", "3"], 1)):
+        step_ms = []
+        with timed_closures(torch, train, ["make_train_step"], step_ms, []):
+            _, got, secs = run(train.main, ["--cfg", yaml, *train_opts, *extra])
+        payload = ckpt.load(os.path.join(run_dir, "checkpoint.pt"))
+        losses = logged_losses(run_dir)
+        print(f"cli {tag}: {len(step_ms)} steps of 6x1024x1024 bf16 and {steps} validations of "
+              f"{val_frames} 1024x2048 frames in {secs:.1f} s host; ms/step "
+              f"{[round(v, 1) for v in step_ms]} (host, ending in a sync); checkpoint epoch "
+              f"{payload['epoch']} iter {payload['iter']}; logged losses {losses}; launches "
+              f"{got} [{card}]")
+        want = {"upsample_argmax": steps + steps * val_frames,
+                "ce_front_fwd": 2 * steps + 2 * steps * val_frames, "ce_front_bwd": 2 * steps}
+        check(got == want, f"cli {tag}: launches {got}, want {want} (1/2/2 a step, 1/2/0 a "
+              f"val batch)")
+        check(len(step_ms) == steps and payload["epoch"] == 2 + (tag == "resume")
+              and payload["iter"] == 0, f"cli {tag}: {len(step_ms)} steps, checkpoint "
+              f"{payload['epoch']}/{payload['iter']}")
+        check(losses and all(np.isfinite(losses)), f"cli {tag}: logged losses {losses}")
+        for name in ("checkpoint.pt", "best.pt", "final_state.pt"):
+            check(os.path.isfile(os.path.join(run_dir, name)), f"cli {tag}: no {name}")
+
+    # eval on the val list [f0, f1, f0], the goldens as labels
+    eval_base = [*base, "MODEL.PRETRAINED", ""]
+    cfg = load_config(yaml, eval_base)
+    spec = common.build_spec(cfg)
+    modes = [("unfolded fp32", [], [], port_pt, 0.995, 0),
+             ("--fold-bn bf16", ["--fold-bn"], [], port_pt, 0.98, val_frames),
+             ("TEST.FLIP_TEST", [], ["TEST.FLIP_TEST", "true"], port_pt, None, 0),
+             ("folded .pt --fold-bn", ["--fold-bn"], [], folded_pt, 0.98, val_frames)]
+    factories = ["make_inference", "make_inference_classmap", "make_ms_flip_inference"]
+    maps_of = {}
+    for tag, flags, opts, model_file, gate, k1 in modes:
+        frame_ms, maps = [], []
+        with timed_closures(torch, engine, factories, frame_ms, maps):
+            scores, got, secs = run(eval_tool.main, ["--cfg", yaml, *flags, *eval_base,
+                                                     "TEST.MODEL_FILE", model_file, *opts])
+        maps_of[tag] = maps
+        miou, iou, pixel_acc, mean_acc = scores
+        print(f"cli eval {tag}: {len(frame_ms)} frames in {secs:.1f} s host; ms per testval "
+              f"frame {[round(v, 1) for v in frame_ms]} (host, ending in a sync); mIoU "
+              f"{miou:.6f}, pixel acc {pixel_acc:.6f}, mean acc {mean_acc:.6f}; launches {got} "
+              f"[{card}]")
+        check(got == {"upsample_argmax": k1, "ce_front_fwd": 0, "ce_front_bwd": 0},
+              f"cli eval {tag}: launches {got}, want {k1}/0/0")
+        check(all(np.isfinite(v) for v in (miou, pixel_acc, mean_acc)), f"cli eval {tag}: scores")
+        if gate is not None:
+            check(pixel_acc >= gate, f"cli eval {tag}: pixel accuracy {pixel_acc} < {gate}")
+        if model_file == folded_pt:
+            same = all(np.array_equal(a, b) for a, b in zip(maps, maps_of["--fold-bn bf16"]))
+            print(f"cli eval {tag}: class maps equal to --fold-bn on the unfolded .pt: {same}")
+            check(same and len(maps) == val_frames, "cli eval: the folded .pt's maps differ")
+            continue
+        # the CLI against engine.testval with a closure built the same way
+        sd = common.load_weights(port_pt, common.init_model(cfg, spec))[0]
+        if flags:
+            sd = fold_state_dict(sd, spec)
+        cfg_m = load_config(yaml, [*eval_base, *opts])
+        make = (engine.make_ms_flip_inference if opts else
+                engine.make_inference_classmap if flags else engine.make_inference)
+        infer = make(cfg_m, spec, sd, folded=bool(flags),
+                     compute_dtype=torch.bfloat16 if flags else None, device="cuda")
+        ds = build_dataset("cityscapes", root=tree, list_path=cfg.DATASET.TEST_SET,
+                           num_classes=19, multi_scale=False, flip=False, ignore_label=255,
+                           base_size=cfg.TEST.BASE_SIZE,
+                           crop_size=(cfg.TEST.IMAGE_SIZE[1], cfg.TEST.IMAGE_SIZE[0]))
+        direct = engine.testval(cfg_m, ds, Loader(ds, 1, num_workers=0), infer)
+        equal = (direct[0] == miou and direct[2:] == (pixel_acc, mean_acc)
+                 and np.array_equal(direct[1], iou))
+        print(f"cli eval {tag}: scores equal to engine.testval called directly: {equal}")
+        check(equal, f"cli eval {tag}: {scores} != engine.testval's {direct}")
+        del infer, sd
+
+    try:
+        eval_tool.main(["--cfg", yaml, *eval_base, "TEST.MODEL_FILE", folded_pt])
+        code = 0
+    except SystemExit as exc:
+        code = exc.code
+    print(f"cli eval folded .pt without --fold-bn: exits with {code!r}")
+    check(code not in (0, None), "cli eval: a folded .pt without --fold-bn did not exit non-zero")
+    print(f"cli: the phase took {time.perf_counter() - t_phase:.1f} s [{card}; host time]")
+    logger = logging.getLogger("pidnet_tpu_torch")
+    for handler in list(logger.handlers):
+        logger.removeHandler(handler)
+        handler.close()
+    logger.setLevel(logging.WARNING)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1334,18 +1532,21 @@ def main() -> int:
     try:
         loaded = phase_data(torch, card, tree, speed_ms)
         evals = phase_eval(torch, card, tree)
+        clis = phase_cli(torch, card, tree)
     finally:
         shutil.rmtree(tree)
-    paths = (counts, loaded, evals)
+    paths = (counts, loaded, evals, clis)
     k1["launches"] = served + sum(c["upsample_argmax"] for c in paths)
     k2["launches"] = sum(c["ce_front_fwd"] for c in paths)
     k3["launches"] = sum(c["ce_front_bwd"] for c in paths)
     print(f"launches on the main paths: upsample_argmax {served} serving + "
           f"{counts['upsample_argmax']} training + {loaded['upsample_argmax']} data + "
-          f"{evals['upsample_argmax']} eval, ce_front_fwd {counts['ce_front_fwd']} training + "
-          f"{loaded['ce_front_fwd']} data + {evals['ce_front_fwd']} eval, ce_front_bwd "
+          f"{evals['upsample_argmax']} eval + {clis['upsample_argmax']} cli, ce_front_fwd "
+          f"{counts['ce_front_fwd']} training + {loaded['ce_front_fwd']} data + "
+          f"{evals['ce_front_fwd']} eval + {clis['ce_front_fwd']} cli, ce_front_bwd "
           f"{counts['ce_front_bwd']} training + {loaded['ce_front_bwd']} data + "
-          f"{evals['ce_front_bwd']} eval, conv3x3 {k4['launches']} conv_ab")
+          f"{evals['ce_front_bwd']} eval + {clis['ce_front_bwd']} cli, conv3x3 "
+          f"{k4['launches']} conv_ab")
 
     print(card)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))

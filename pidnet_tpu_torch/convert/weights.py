@@ -7,13 +7,20 @@ pidnet_tpu/convert/torch_weights.py).
 - the `.npz` format of runs/train2k/weights_f16.npz: `p.<name>` params and
   `s.<name>` BN state, float16, HWIO;
 - reference PyTorch `.pt`/`.pth.tar` checkpoints, whose keys may carry the
-  FullModel `model.` prefix and BN `num_batches_tracked` counters.
+  FullModel `model.` prefix and BN `num_batches_tracked` counters, and the
+  port's own `{params, state}` payloads (train/checkpoint.py);
+- the tolerant merge of any of them into a model's state dict, and the
+  reference layout out (`export_state_dict`).
 """
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
+
+log = logging.getLogger(__name__)
 
 
 def normalize_keys(sd: dict) -> dict:
@@ -76,10 +83,13 @@ def load_npz(path: str) -> dict:
 
 
 def load_pt(path: str) -> dict:
-    """A reference `.pt`/`.pth.tar` checkpoint -> port state dict (float32,
-    already OIHW)."""
+    """A reference `.pt`/`.pth.tar` checkpoint, bare or under a `state_dict`
+    key, or one of the port's `{params, state}` payloads -> port state dict
+    (float32, already OIHW)."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    if "state_dict" in payload:
+    if "params" in payload:
+        payload = {**payload["params"], **payload["state"]}
+    elif "state_dict" in payload:
         payload = payload["state_dict"]
     return {k: v.float() for k, v in normalize_keys(payload).items()}
 
@@ -89,3 +99,32 @@ def load(path: str) -> dict:
     if path.endswith(".npz"):
         return load_npz(path)
     return load_pt(path)
+
+
+def merge_state_dict(sd: dict, template: dict) -> tuple[dict, int]:
+    """Merge state dict `sd` (port layout; `model.` prefixes and BN counters
+    allowed) into `template`, the reference's strict=False load
+    (models/pidnet.py:196,208): keys the template lacks, or whose shapes
+    differ, are skipped. Returns (merged float32 state dict, tensors
+    loaded)."""
+    merged = dict(template)
+    n_loaded = 0
+    for k, v in normalize_keys(sd).items():
+        if k not in merged:
+            log.debug("skip (unknown): %s", k)
+            continue
+        v = torch.as_tensor(v).detach().to("cpu", torch.float32)
+        if tuple(merged[k].shape) != tuple(v.shape):
+            log.debug("skip (shape): %s %s vs %s", k, tuple(merged[k].shape), tuple(v.shape))
+            continue
+        merged[k] = v
+        n_loaded += 1
+    log.info("Loaded %d parameters!", n_loaded)
+    return merged, n_loaded
+
+
+def export_state_dict(state_dict: dict, prefix: str = "model.") -> dict:
+    """Port state dict -> the reference's layout: float32 CPU tensors under
+    the FullModel `model.` prefix, conv weights OIHW, which the reference's
+    get_seg_model loads."""
+    return {prefix + k: v.detach().to("cpu", torch.float32) for k, v in state_dict.items()}

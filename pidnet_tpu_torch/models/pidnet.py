@@ -27,6 +27,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from pidnet_tpu_torch import resolve_device
 from pidnet_tpu_torch.nn.functional import (
     affine,
     avg_pool2d,
@@ -446,14 +447,16 @@ class PIDNet(nn.Module):
 
 
 def build(spec: PIDNetSpec, state_dict: dict, *, folded: bool = False,
-          device="cpu", train: bool = False) -> PIDNet:
-    """A PIDNet on `device` holding `state_dict`'s tensors as fp32: in eval
+          device=None, train: bool = False) -> PIDNet:
+    """A PIDNet on `device` (`resolve_device`: the card unless the caller
+    names another) holding `state_dict`'s tensors as fp32: in eval
     mode, or with `train=True` an unfolded model in training mode, in
     channels_last, whose parameters take gradients. Keys the model lacks,
     such as the aux heads of an augment=False model, are ignored; a key the
     model needs and `state_dict` lacks raises."""
     if train and folded:
         raise ValueError("a folded model has no BN to train")
+    device = resolve_device(device)
     with torch.device("meta"):
         model = PIDNet(spec, folded=folded)
     model = model.to_empty(device=device)

@@ -7,6 +7,11 @@ pidnet_tpu/train/checkpoint.py), the reference's three artifacts
 - ``best.pt``        - params and BN state on an mIoU improvement;
 - ``final_state.pt`` - params and BN state at the end.
 
+A model payload written by `tools.convert --fold` holds BN-folded tensors
+(convert/fold.py) and no BN state, tagged ``"folded": True``: its conv
+weights share the unfolded names, so loaders route on `is_folded` and
+never merge it into an unfolded model.
+
 Tensors are keyed by the JAX package's names, in the port's layout (conv
 weights OIHW). The format is `torch.save`, written to a temporary file and
 moved into place. The JAX package writes flax msgpack, which the port
@@ -68,8 +73,19 @@ def restore_train_state(ts: TrainState, payload: dict) -> TrainState:
     return ts
 
 
-def save_model(path: str, params: dict, state: dict) -> None:
-    save(path, {"params": params, "state": state})
+def save_model(path: str, params: dict, state: dict, *, folded: bool = False) -> None:
+    payload = {"params": params, "state": state}
+    if folded:
+        payload["folded"] = True
+    save(path, payload)
+
+
+def is_folded(path: str) -> bool:
+    """True when `path` is a model payload tagged as BN-folded."""
+    if path.endswith(".npz"):
+        return False
+    payload = load(path)
+    return isinstance(payload, dict) and bool(payload.get("folded", False))
 
 
 def load_model(path: str):

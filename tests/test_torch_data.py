@@ -612,7 +612,7 @@ def test_train_and_validate_from_the_loader(city_root):
     each confusion matrix totals the labelled pixels of the val frames."""
     spec = M.PIDNetSpec(2, 3, 19, 8, 16, 16, True)
     ts = TrainState.create(M.build(spec, M.init(spec, torch.Generator().manual_seed(0)),
-                                   train=True))
+                                   device="cpu", train=True))
     loss_fn = FullLoss(ignore_label=255, class_weights=CLASS_WEIGHTS, ohem_kept=1000)
     step = make_train_step(ts, loss_fn)
     losses = []

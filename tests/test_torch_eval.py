@@ -114,7 +114,8 @@ def test_eval_step_matches_jax_on_the_8_device_mesh(weights, batch8, jax_eval):
     matrices within 0.1% of the counted pixels (fp32 argmax near-ties)."""
     want_m, want_cms = jax_eval
     img, lab, edge, mask = batch8
-    step = make_eval_step(M.build(SPEC, weights[2]), FullLoss(**LOSS_KW), num_classes=19)
+    step = make_eval_step(M.build(SPEC, weights[2], device="cpu"), FullLoss(**LOSS_KW),
+                          num_classes=19)
     sums, weight = {}, 0.0
     for i in range(8):
         m, _ = step(*(a[i:i + 1] for a in batch8))
@@ -144,8 +145,8 @@ def test_bf16_eval_step_counts_only_real_pixels(weights, batch8, jax_eval):
     img, lab, edge, mask = batch8
     lab = lab.copy()
     lab[5:] = np.random.default_rng(6).integers(0, 19, lab[5:].shape)
-    step = make_eval_step(M.build(SPEC, weights[2]), FullLoss(**LOSS_KW), num_classes=19,
-                          compute_dtype=torch.bfloat16)
+    step = make_eval_step(M.build(SPEC, weights[2], device="cpu"), FullLoss(**LOSS_KW),
+                          num_classes=19, compute_dtype=torch.bfloat16)
     m, cms = step(img, lab, edge, mask)
     counted = int((lab[:5] != 255).sum())
     assert [int(c.sum()) for c in cms] == [counted, counted]
@@ -171,8 +172,8 @@ def test_validate_pads_the_partial_batch(weights):
     labelled pixel once."""
     rng = np.random.default_rng(11)
     b1, b2 = _batch(rng, 4), _batch(rng, 3)
-    step = make_eval_step(M.build(SPEC, weights[2]), FullLoss(ignore_label=255, ohem_kept=100),
-                          num_classes=19)
+    step = make_eval_step(M.build(SPEC, weights[2], device="cpu"),
+                          FullLoss(ignore_label=255, ohem_kept=100), num_classes=19)
     seen = []
 
     def recording_step(*batch):

@@ -146,7 +146,7 @@ def test_pidnet_s_augment_matches_jax_all_heads(rng):
     x = rng.standard_normal((1, 64, 128, 3)).astype(np.float32)
     jspec = JM.spec_for("pidnet_s", 19, augment=True)
     want = [np.asarray(o) for o in JM.apply(params, state, jnp.asarray(x), jspec)]
-    model = M.build(M.spec_for("pidnet_s", 19, augment=True), sd)
+    model = M.build(M.spec_for("pidnet_s", 19, augment=True), sd, device="cpu")
     with torch.no_grad():
         got = [o.numpy() for o in model(torch.from_numpy(x))]
     assert [g.shape for g in got] == [(1, 8, 16, 19), (1, 8, 16, 19), (1, 8, 16, 1)]
@@ -169,7 +169,8 @@ def test_pidnet_l_matches_jax(rng):
              for k, v in state.items()}
     x = rng.standard_normal((1, 64, 128, 3)).astype(np.float32)
     want = np.asarray(JM.apply(params, state, jnp.asarray(x), jspec))
-    model = M.build(M.spec_for("pidnet_l", 19, augment=False), W.from_jax(params, state))
+    model = M.build(M.spec_for("pidnet_l", 19, augment=False), W.from_jax(params, state),
+                    device="cpu")
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape == (1, 8, 16, 19)
@@ -181,7 +182,7 @@ def test_folded_port_matches_unfolded_jax(rng):
     spec = M.spec_for("pidnet_s", 19, augment=False)
     x = rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
     want = np.asarray(JM.apply(params, state, jnp.asarray(x), JM.spec_for("pidnet_s", 19, False)))
-    model = M.build(spec, fold_state_dict(sd, spec), folded=True)
+    model = M.build(spec, fold_state_dict(sd, spec), folded=True, device="cpu")
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
@@ -237,11 +238,11 @@ def test_pt_checkpoint_with_model_prefix_loads(tmp_path):
 def test_build_ignores_unused_heads_and_requires_the_rest():
     sd, _, _ = _trained()
     spec = M.spec_for("pidnet_s", 19, augment=False)
-    model = M.build(spec, sd)  # sd carries seghead_p/seghead_d
+    model = M.build(spec, sd, device="cpu")  # sd carries seghead_p/seghead_d
     assert not any(k.startswith("seghead") for k in model.state_dict())
     del sd["final_layer.conv2.bias"]
     with pytest.raises(KeyError, match="lacks 1"):
-        M.build(spec, sd)
+        M.build(spec, sd, device="cpu")
 
 
 def test_init_is_kaiming_fan_out():

@@ -22,7 +22,8 @@ from pidnet_tpu_torch.data.transforms import input_transform
 from pidnet_tpu_torch.models import pidnet as M
 from pidnet_tpu_torch.ops import upsample_argmax as TU
 from pidnet_tpu_torch.ops.resize import resize_bilinear
-from pidnet_tpu_torch.tools import custom, speed
+from pidnet_tpu_torch.tools import custom, speed, train
+from pidnet_tpu_torch.tools import eval as eval_tool
 
 torch.set_num_threads(2)
 
@@ -48,7 +49,7 @@ def test_classmap_matches_argmax_of_inference(rng, trained):
     assert classes.dtype == torch.int32 and tuple(classes.shape) == (1, 64, 128)
     assert tuple(probs.shape) == (1, 64, 128, 19) and probs.dtype == torch.float32
     with torch.no_grad():
-        logits = M.build(spec, trained)(torch.from_numpy(x))[1]
+        logits = M.build(spec, trained, device="cpu")(torch.from_numpy(x))[1]
     want = torch.argmax(resize_bilinear(logits, (64, 128), True), dim=-1)
     assert torch.equal(classes.long(), want)
     assert (classes.long() == probs.argmax(-1)).float().mean().item() >= 0.999
@@ -181,6 +182,12 @@ def test_entry_points_default_to_cuda_and_never_fall_back(trained):
     with pytest.raises(RuntimeError, match="CUDA"):
         engine.make_inference_classmap(engine.config(), M.spec_for("pidnet_s", 19, False),
                                        trained)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.build(M.spec_for("pidnet_s", 19, True), trained)
+    yaml = os.path.join(ROOT, "configs", "cityscapes", "pidnet_small_cityscapes.yaml")
+    for cli in (train, eval_tool):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["--cfg", yaml])
     assert resolve_device("cpu") == torch.device("cpu")
     assert TU.launches == 0
 

@@ -120,7 +120,7 @@ def test_one_train_step_matches_jax(rng, jax_weights):
                                {k: jnp.asarray(v) for k, v in state.items()})
     jts, jm = jstep(jts, *shard_batch(mesh, img, lab, edge), 0.01)
 
-    model = M.build(SPEC, W.from_jax(params, state), train=True)
+    model = M.build(SPEC, W.from_jax(params, state), device="cpu", train=True)
     ts = TrainState.create(model)
     tm = make_train_step(ts, FullLoss(**LOSS_KW))(
         *(torch.from_numpy(a) for a in (img, lab, edge)), 0.01)
@@ -212,7 +212,7 @@ def test_train_state_carries_to_and_from_jax(rng, jax_weights):
 
 def _tiny_state(seed=0):
     sd = M.init(SPEC, torch.Generator().manual_seed(seed))
-    return TrainState.create(M.build(SPEC, sd, train=True))
+    return TrainState.create(M.build(SPEC, sd, device="cpu", train=True))
 
 
 def test_checkpoint_round_trip(tmp_path, rng):
