@@ -12,16 +12,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    modes: the fused upsample+argmax (K1: >= 0.9999 of pixels agree, none
    whose fp32 top-2 margin exceeds 1e-3 differs; at the serving, training
    and eval shapes among others, 100 classes and 1100, which take the
-   direct kernel), and the fused upsample+CE
+   direct kernel, and BiSeNet's scale-1 (1,1024,2048,19)), and the fused
+   upsample+CE
    forward (K2: w exact, ignored pixels 0, nll within 1e-4) and backward
    (K3: cosine > 0.99999 against autograd of the plain forward, max-abs
    within 2^-7 of the largest value in bf16, 1e-5 in fp32), each with two
    launches on the same inputs bit-identical and its plan at each shape
    (bands, tiles, blocks, shared memory, cross-checked against the
-   kernel's own layout); each one's time (CUDA events, median), the plain
+   kernel's own layout; K2 and K3 also at BiSeNet's scale-1
+   (6,1024,1024,19)); each one's time (CUDA events, median), the plain
    version's, a library call's, and its bound; K2's and K3's device time
-   under torch.profiler beside their event times, and K2's time at the
-   eval shape; K1 at the serving, training and eval shapes four ways: its
+   under torch.profiler beside their event times, K2's time at the eval
+   shape and both at scale 1; K1 at the serving, training, eval and
+   scale-1 shapes four ways: its
    device time (torch.profiler), raw launches without the wrapper and the
    wrapper's calls (CUDA events), and the wrapper's host time a call;
 3. slice: PIDNet-S with the train2k weights, BN folded, serving the two
@@ -29,6 +32,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    engine.make_inference_classmap; the kernel's launch counter must rise
    by the number of requests; the class maps are gated against the frozen
    fp32 goldens and an fp32 reference (TF32 off); then timed requests;
+   export: `python -m pidnet_tpu_torch.tools.convert --export-aot --r 1024
+   2048` of the train2k weights into a temporary directory of the
+   checkout; in a fresh process that imports only convert/aot.py,
+   `load_serving` on the card serves both frames: the maps must equal the
+   slice phase's bit for bit, K1's counter in that process must rise by
+   exactly one a call, no model module may be imported; then timed
+   requests beside the eager ms/img of the slice phase, `tools.speed --aot
+   --profile 20` (its FPS line and device-busy share), the program and
+   the eager closure in turns in another fresh process, and the eager
+   closure profiled; last, a 1x256x512 export served with
+   device="cpu" must equal the port's CPU class-map path;
 4. train: PIDNet-S (augment) from seeded random weights trains for
    TRAIN_STEPS steps through engine.train_one_epoch on seeded block-label
    6x1024x1024 crops, with the reference recipe (bf16, OHEM 0.9/131072,
@@ -42,6 +56,25 @@ Phases, each printing its own lines; any failure exits non-zero:
    0.9999). Then the train step's speed (tools/speed.py --train) and peak
    memory, and a profile of 5 steps: device busy per step and K2's and
    K3's device time in it;
+   families: DDRNet-23 and BiSeNetV1 at their published widths from
+   seeded weights, BN statistics settled on frame 0 (calibrate_bn), BN
+   folded: both frames served at 1x1024x2048 in bf16 through
+   engine.make_inference_classmap (K1 once a request; BiSeNet's logits
+   arrive at the input's size, so its K1 runs at scale 1); gates: bf16
+   against the unfolded fp32 model (TF32 off) >= 0.9999 where the fp32
+   top-2 margin exceeds 1.0; the card's fp32 logits of every head at
+   1x256x512 against the CPU's within the JAX tests' tolerances (DDRNet
+   rtol 1e-4/atol 5e-4, BiSeNet 2e-4/1e-3); 3 steps of
+   engine.train_one_epoch at 6x1024x1024 bf16 with the reference recipe
+   (the balance weights of models.pidnet.balance_weights: 0.4 for each
+   auxiliary segmentation head, 1.0 for the final one): finite losses, the first
+   conv and every BN running mean moved, and the launches a step derived
+   from FullLoss: K1 once (the final head's pixel accuracy), K2 once for
+   the final head (its CE and its boundary-aware CE share the maps) and
+   once for each other segmentation head, K3 once for each K2, so 1/2/2
+   for DDRNet (one aux head) and 1/3/3 for BiSeNet (two; its K2/K3 run at
+   scale 1); then each family's serving ms/img, train ms/step
+   (tools/speed.py --train) and peak memory beside PIDNet-S's;
 5. conv: the fused 3x3 conv (K4) against its plain version at the three
    A/B shapes of tools/conv_ab.py and four small ones (W = 24, pixel tiles
    straddling the bottom and right edges, W = 200 among them), each with
@@ -112,6 +145,7 @@ the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import glob
@@ -121,6 +155,7 @@ import logging
 import os
 import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -142,7 +177,8 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # (N, h, w, C) logits -> (oh, ow): the serving main path, the training main
 # path (FullLoss's accuracy), the eval path (a val batch's matrices), a
 # small batch, CamVid's 90x120 -> 720x960, an identity size, 100 classes
-# (four lanes a pixel) and 1100 (the direct kernel)
+# (four lanes a pixel), 1100 (the direct kernel), and BiSeNet's serving
+# path, whose logits arrive at the input's size (scale 1)
 KERNEL_CASES = [
     ((1, 128, 256, 19), (1024, 2048)),
     ((6, 128, 128, 19), (1024, 1024)),
@@ -152,23 +188,28 @@ KERNEL_CASES = [
     ((1, 128, 256, 19), (128, 256)),
     ((1, 16, 16, 100), (128, 128)),
     ((1, 8, 8, 1100), (32, 32)),
+    ((1, 1024, 2048, 19), (1024, 2048)),
 ]
 MAIN_CASE = KERNEL_CASES[0]
-K1_TIMED = {"serving": KERNEL_CASES[0], "train": KERNEL_CASES[1], "eval": KERNEL_CASES[2]}
+K1_TIMED = {"serving": KERNEL_CASES[0], "train": KERNEL_CASES[1], "eval": KERNEL_CASES[2],
+            "BiSeNet serving, scale 1": KERNEL_CASES[-1]}
+WARM_REQUESTS = 5
 TIMED_REQUESTS = 20
 
 # (N, h, w, C) logits -> (oh, ow) for the loss front: the training main
 # path (batch 6 of 1024x1024 crops), the eval path (a val batch of two
 # 1024x2048 frames), CamVid's 720x960, an identity size, 100 classes (four
-# lanes a pixel)
+# lanes a pixel), and BiSeNet's training path, whose heads arrive at the
+# labels' size (scale 1)
 CE_CASES = [
     ((6, 128, 128, 19), (1024, 1024)),
     ((2, 128, 256, 19), (1024, 2048)),
     ((2, 90, 120, 11), (720, 960)),
     ((1, 128, 128, 19), (128, 128)),
     ((1, 16, 16, 100), (128, 128)),
+    ((6, 1024, 1024, 19), (1024, 1024)),
 ]
-CE_MAIN, CE_EVAL = CE_CASES[0], CE_CASES[1]
+CE_MAIN, CE_EVAL, CE_SCALE1 = CE_CASES[0], CE_CASES[1], CE_CASES[-1]
 
 # (N, H, W, C) of the fused 3x3 conv: the A/B shapes of tools/conv_ab.py,
 # then a width that is no multiple of a tile, a small batch, pixel tiles
@@ -340,8 +381,9 @@ def phase_kernels(torch, ua) -> dict:
 def ce_bound_ms(shape, out_hw, itemsize: int, counted: int, backward: bool):
     """Least time for the loss front on an H100 on this run's data: the
     largest of its bytes (logits, labels and, backward, g read once; the
-    fp32 maps or dL written once) over 3.35 TB/s, its fp32 operations over
-    67 TFLOP/s, and its exp/log/reciprocal over the special-function rate.
+    fp32 maps, or dL in the logits' dtype, written once) over 3.35 TB/s,
+    its fp32 operations over 67 TFLOP/s, and its exp/log/reciprocal over
+    the special-function rate.
     `counted` is the number of pixels that need the softmax: label in
     [0, C) and, backward, g != 0. Operations follow the separable form: a
     W-lerp (3 flops) per source row, output column and class, an H-lerp (3)
@@ -353,7 +395,7 @@ def ce_bound_ms(shape, out_hw, itemsize: int, counted: int, backward: bool):
     pixels = n * oh * ow
     logits = n * h * w * c * itemsize
     if backward:
-        nbytes = logits + 2 * pixels * 4 + n * h * w * c * 4
+        nbytes = 2 * logits + 2 * pixels * 4  # dL has the logits' dtype
         flops = 7 * n * h * ow * c + 11 * counted * c
     else:
         nbytes = logits + pixels * 4 + c * 4 + 2 * pixels * 4
@@ -502,6 +544,24 @@ def phase_ce_front(torch, cf) -> tuple[dict, dict]:
     bound_ms, bound_by = ce_bound_ms(shape, out_hw, x.element_size(), int(counted.sum()), False)
     print(f"kernel ce_front_fwd {shape}->{out_hw} bf16 (the eval shape): {ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
+
+    shape, out_hw = CE_SCALE1  # K2 and K3 on BiSeNet's training path
+    base, labels, cw, g = ce_inputs(torch, rng, shape, out_hw)
+    x = base.to(torch.bfloat16)
+    counted = (labels >= 0) & (labels < shape[3])
+    for name, kernel, fn, n_counted, backward in (
+        ("ce_front_fwd", "ce_fwd_kernel",
+         lambda: cf.ce_front_fwd(x, labels, cw, 255, out_hw, True), int(counted.sum()), False),
+        ("ce_front_bwd", "ce_bwd_kernel",
+         lambda: cf.ce_front_bwd(x, labels, 255, out_hw, True, g),
+         int((counted & (g != 0)).sum()), True),
+    ):
+        ms = time_ms(fn)
+        k_ms, _ = kernel_device_ms(torch, fn, kernel)
+        bound_ms, bound_by = ce_bound_ms(shape, out_hw, x.element_size(), n_counted, backward)
+        print(f"kernel {name} {shape}->{out_hw} bf16 (BiSeNet's training shape, scale 1): "
+              f"{ms:.4f} ms (CUDA events), device {k_ms:.4f} ms (torch.profiler), bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / k_ms:.1%} of bound")
     return entries[0], entries[1]
 
 
@@ -518,11 +578,18 @@ def conv_bound_ms(shape) -> tuple[float, str]:
 def kernel_device_ms(torch, fn, kernel: str, calls: int = 20) -> tuple[float, float]:
     """(device ms per call of the kernels whose name holds `kernel`, device
     ms per call of every kernel the call launches) of `fn` over `calls`
-    profiled calls (tools/speed.device_breakdown)."""
+    profiled calls (tools/speed.device_breakdown). A trace that recorded
+    none of the kernel's launches (torch.profiler drops a cycle's device
+    events now and then) is taken again, up to three times."""
     from pidnet_tpu_torch.tools.speed import device_breakdown
 
-    _, busy, rows = device_breakdown(lambda _: fn(), None, torch.device("cuda"), calls, top=None)
-    return sum(ms for name, ms, _ in rows if kernel in name), busy
+    for _ in range(3):
+        _, busy, rows = device_breakdown(lambda _: fn(), None, torch.device("cuda"), calls,
+                                         top=None)
+        k_ms = sum(ms for name, ms, _ in rows if kernel in name)
+        if k_ms > 0:
+            return k_ms, busy
+    raise RuntimeError(f"torch.profiler recorded no {kernel} launch in three traces")
 
 
 def host_ms(torch, fn, calls: int = 20, windows: int = 5) -> float:
@@ -648,8 +715,26 @@ def fp32_reference(torch, M, sd, x):
         return up.argmax(dim=1).int().cpu().numpy(), (top2[:, 0] - top2[:, 1]).cpu().numpy()
 
 
-def phase_slice(torch, card: str) -> int:
-    """Serve the sample frames; returns the number of requests served."""
+def timed_requests(torch, serve, x) -> list:
+    """Host ms of each of TIMED_REQUESTS calls `serve(x)`, each ending in a
+    sync, after WARM_REQUESTS warm-up calls."""
+    for _ in range(WARM_REQUESTS):
+        serve(x)
+    times = []
+    for _ in range(TIMED_REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_slice(torch, card: str) -> dict:
+    """Serve the sample frames; returns the number of requests served
+    ("requests"), the frames' normalised inputs ("frames") and bf16 class
+    maps ("maps") in the goldens' order, and the timed requests' median
+    and mean ms/img."""
     from pidnet_tpu_torch import engine
     from pidnet_tpu_torch.convert.fold import fold_state_dict
     from pidnet_tpu_torch.convert.weights import load_npz
@@ -676,8 +761,10 @@ def phase_slice(torch, card: str) -> int:
 
     ua.launches = 0  # the main path starts here
     requests = 0
+    maps = []
     for name, x in frames.items():
         got = serve(x).cpu().numpy()[0]
+        maps.append(got)
         got32 = serve32(x).cpu().numpy()[0]
         requests += 2
         ref, margin = fp32_reference(torch, M, sd, x)
@@ -696,18 +783,8 @@ def phase_slice(torch, card: str) -> int:
         check(golden >= 0.995 and pipeline >= 0.9995 and confident >= 0.9999,
               f"{name}: a numerics gate failed")
 
-    x = torch.from_numpy(next(iter(frames.values()))).cuda()
-    for _ in range(5):
-        serve(x)
-    requests += 5
-    times = []
-    for _ in range(TIMED_REQUESTS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        serve(x)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    requests += TIMED_REQUESTS
+    times = timed_requests(torch, serve, torch.from_numpy(next(iter(frames.values()))).cuda())
+    requests += WARM_REQUESTS + TIMED_REQUESTS
     mean = statistics.fmean(times)
     print(f"slice serve PIDNet-S bf16 folded 1x1024x2048 -> class map, device-resident fp32 "
           f"input, {TIMED_REQUESTS} requests: median {statistics.median(times):.3f} ms/img, "
@@ -715,7 +792,183 @@ def phase_slice(torch, card: str) -> int:
     check(ua.launches == requests,
           f"upsample_argmax launched {ua.launches} times for {requests} requests")
     print(f"slice: upsample_argmax launches {ua.launches} for {requests} requests")
-    return requests
+    return {"requests": requests, "frames": list(frames.values()), "maps": maps,
+            "median_ms": statistics.median(times), "mean_ms": mean}
+
+
+AOT_HW = (1024, 2048)
+AOT_CPU_HW = (256, 512)
+
+
+def serve_artifact(work: str) -> None:
+    """The export phase's fresh process on the card: load `work`/serve.pt2
+    with `convert.aot.load_serving` alone, serve each `frame_<i>.npy`, hold
+    the maps to `map_<i>.npy` and count K1's launches a call, then time
+    requests; prints one JSON line."""
+    import torch
+
+    from pidnet_tpu_torch.convert.aot import load_serving
+    from pidnet_tpu_torch.ops import upsample_argmax as ua
+
+    serve = load_serving(os.path.join(work, "serve.pt2"))
+    models = sorted(m for m in sys.modules if m.startswith("pidnet_tpu_torch.models"))
+    frames = sorted(glob.glob(os.path.join(work, "frame_*.npy")))
+    ua.launches = 0
+    equal, launches = [], []
+    for i, path in enumerate(frames):
+        x = torch.from_numpy(np.load(path)).cuda()
+        got = serve(x).cpu().numpy()
+        want = np.load(os.path.join(work, f"map_{i}.npy"))
+        equal.append(got.shape == want.shape and bool(np.array_equal(got, want)))
+        launches.append(ua.launches)
+    before = ua.launches
+    times = timed_requests(torch, serve, x)
+    print(json.dumps({"input_shape": serve.input_shape, "equal": equal, "launches": launches,
+                      "timed_launches": ua.launches - before, "models_imported": models,
+                      "median_ms": statistics.median(times), "mean_ms": statistics.fmean(times),
+                      "total_launches": ua.launches}))
+
+
+TURN_ROUNDS = 6
+
+
+def turns_artifact(work: str) -> None:
+    """The export phase's second fresh process on the card: the program
+    (`work`/serve.pt2) and the eager closure of the same weights in turns,
+    TURN_ROUNDS rounds of timed_requests each, the order flipped every
+    round, from a process that has done nothing else (the main process's
+    heap slows and spreads its host times); prints one JSON line with
+    each round's median and the program graph's op counts."""
+    import torch
+
+    from pidnet_tpu_torch import engine
+    from pidnet_tpu_torch.convert.aot import load_serving
+    from pidnet_tpu_torch.convert.fold import fold_state_dict
+    from pidnet_tpu_torch.convert.weights import load_npz
+    from pidnet_tpu_torch.models import pidnet as M
+
+    spec = M.spec_for("pidnet_s", 19, augment=False)
+    eager = engine.make_inference_classmap(engine.config(), spec,
+                                           fold_state_dict(load_npz(WEIGHTS), spec),
+                                           folded=True, compute_dtype=torch.bfloat16)
+    program = load_serving(os.path.join(work, "serve.pt2"))
+    fns = {"eager": eager, "program": program}
+    x = torch.from_numpy(np.load(os.path.join(work, "frame_0.npy"))).cuda()
+    rounds = {name: [] for name in fns}
+    for r in range(TURN_ROUNDS):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            rounds[name].append(statistics.median(timed_requests(torch, fns[name], x)))
+    calls = collections.Counter(str(node.target) for node in program.program.graph.nodes
+                                if node.op == "call_function")
+    run = collections.Counter(str(node.target) for node in program._fn.graph.nodes
+                              if node.op == "call_function")
+    print(json.dumps({"rounds": rounds, "ops": calls.most_common(), "ops_run": sum(run.values())}))
+
+
+def run_python(args, label: str) -> str:
+    """`python args` in a fresh process from the checkout's root; its
+    stdout, or a failed check with its output."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    print(f"export: {label} in a fresh process, {time.perf_counter() - t0:.1f} s host")
+    check(proc.returncode == 0, f"{label} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def phase_export(torch, card: str, served: dict) -> int:
+    """The serving export: tools.convert --export-aot of the train2k
+    weights at 1x1024x2048, the program served in a fresh process on the
+    card against the slice phase's maps and timed, tools.speed --aot, and
+    a 1x256x512 export served on the CPU against the port's CPU path.
+    Returns K1's launches in the fresh process."""
+    from pidnet_tpu_torch import engine
+    from pidnet_tpu_torch.convert.aot import export_serving, load_serving
+    from pidnet_tpu_torch.convert.fold import fold_state_dict
+    from pidnet_tpu_torch.convert.weights import load_npz
+    from pidnet_tpu_torch.models import pidnet as M
+    from pidnet_tpu_torch.tools import speed
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_aot_", dir=ROOT)
+    try:
+        artifact = os.path.join(work, "serve.pt2")
+        out = run_python(["-m", "pidnet_tpu_torch.tools.convert", "--export-aot", "--r",
+                          *map(str, AOT_HW), WEIGHTS, artifact], "tools.convert --export-aot")
+        print(f"export: {out.strip().splitlines()[-1]}")
+        for i, (x, m) in enumerate(zip(served["frames"], served["maps"])):
+            np.save(os.path.join(work, f"frame_{i}.npy"), x)
+            np.save(os.path.join(work, f"map_{i}.npy"), m[None])
+        code = f"import chip_smoke; chip_smoke.serve_artifact({work!r})"
+        child = json.loads(
+            run_python(["-c", code], "load_serving").strip().splitlines()[-1])
+        n = len(served["maps"])
+        print(f"export: the program in a fresh process: input {child['input_shape']}, maps equal "
+              f"to the slice phase's bit for bit {child['equal']}, K1 launches after each call "
+              f"{child['launches']} (+{child['timed_launches']} over "
+              f"{WARM_REQUESTS + TIMED_REQUESTS} timed calls), model modules imported "
+              f"{child['models_imported']}")
+        check(child["equal"] == [True] * n, "the program's class maps differ from the slice's")
+        check(child["launches"] == list(range(1, n + 1))
+              and child["timed_launches"] == WARM_REQUESTS + TIMED_REQUESTS,
+              "K1 did not launch exactly once a call inside the program")
+        check(not child["models_imported"], "loading the program imported model code")
+        print(f"export serve PIDNet-S bf16 folded 1x1024x2048 -> class map through the program, "
+              f"device-resident fp32 input, {TIMED_REQUESTS} requests: median "
+              f"{child['median_ms']:.3f} ms/img, mean {child['mean_ms']:.3f} ms/img; eager "
+              f"engine.make_inference_classmap in the slice phase: median "
+              f"{served['median_ms']:.3f}, mean {served['mean_ms']:.3f} ms/img [{card}]")
+
+        out = run_python(["-m", "pidnet_tpu_torch.tools.speed", "--aot", artifact,
+                          "--profile", "20"], "tools.speed --aot --profile 20")
+        line = [ln for ln in out.splitlines() if "FPS" in ln]
+        check("AOT Artifact Speed Testing" in out and len(line) == 1,
+              f"tools.speed --aot printed:\n{out}")
+        print(f"export: tools.speed --aot: {line[0]} [{card}]")
+        for ln in out.splitlines()[out.splitlines().index(line[0]) + 1:][:6]:
+            print(f"export: tools.speed --aot {ln.strip()}")
+
+        # the program against the eager closure in turns, in a fresh process
+        code = f"import chip_smoke; chip_smoke.turns_artifact({work!r})"
+        turns = json.loads(run_python(["-c", code], "turns").strip().splitlines()[-1])
+        print(f"export: the program's graph calls {sum(n for _, n in turns['ops'])} ops a "
+              f"request as exported ("
+              + ", ".join(f"{n} {name}" for name, n in turns["ops"][:4])
+              + f"), {turns['ops_run']} as loaded (no metadata asserts)")
+        medians = {name: statistics.median(v) for name, v in turns["rounds"].items()}
+        print(f"export: in turns in a fresh process ({TURN_ROUNDS} rounds of {TIMED_REQUESTS} "
+              f"requests each, order flipped each round): "
+              + ", ".join(f"{name} median {medians[name]:.3f} ms/img (rounds "
+                          + " ".join(f"{t:.3f}" for t in v) + ")"
+                          for name, v in turns["rounds"].items())
+              + f"; program/eager {medians['program'] / medians['eager']:.3f} [{card}]")
+        spec = M.spec_for("pidnet_s", 19, augment=False)
+        sd = load_npz(WEIGHTS)
+        eager = engine.make_inference_classmap(engine.config(), spec, fold_state_dict(sd, spec),
+                                               folded=True, compute_dtype=torch.bfloat16)
+        x = torch.from_numpy(served["frames"][0]).cuda()
+        wall, busy, _ = speed.device_breakdown(eager, x, torch.device("cuda"), 20)
+        print(f"export: eager engine.make_inference_classmap profiled over 20 calls: wall "
+              f"{wall:.3f} ms/call, device busy {busy:.3f} ms/call ({busy / wall:.1%}) [{card}]")
+        del eager
+
+        # the two-device claim: a small export served on the CPU
+        h, w = AOT_CPU_HW
+        x = torch.from_numpy(np.ascontiguousarray(served["frames"][0][:, :h, :w]))
+        t0 = time.perf_counter()
+        cpu_serve = load_serving(export_serving(sd, spec, (h, w)), device="cpu")
+        got = cpu_serve(x)
+        want = engine.make_inference_classmap(engine.config(), spec, fold_state_dict(sd, spec),
+                                              folded=True, compute_dtype=torch.bfloat16,
+                                              device="cpu")(x)
+        same = torch.equal(got, want)
+        print(f"export: a 1x{h}x{w} program on the CPU against the port's CPU class-map path: "
+              f"equal {same}, {got.shape} {got.dtype} ({time.perf_counter() - t0:.1f} s host)")
+        check(same and got.device.type == "cpu", "the CPU program's maps differ")
+    finally:
+        shutil.rmtree(work)
+    return child["total_launches"]
 
 
 class _NoWriter:
@@ -736,9 +989,10 @@ def plain_versions(cf, ua, criterion):
         cf.ce_front_fwd, cf.ce_front_bwd, criterion.upsample_argmax = saved
 
 
-def phase_train(torch, card: str) -> dict:
+def phase_train(torch, card: str) -> tuple:
     """Train PIDNet-S through engine.train_one_epoch; returns the launch
-    counts of that run by kernel."""
+    counts of that run by kernel, and tools/speed.py --train's ms/step and
+    peak GiB."""
     import torch.nn.functional as F
 
     from pidnet_tpu_torch import engine
@@ -868,7 +1122,191 @@ def phase_train(torch, card: str) -> dict:
     print(f"train profile over 5 steps (torch.profiler): wall {wall:.2f} ms/step, device busy "
           f"{busy:.3f} ms/step ({busy / wall:.1%}); K3 ce_bwd_kernel {k3:.4f} ms/step "
           f"({k3 / busy:.2%} of busy), K2 ce_fwd_kernel {k2:.4f} ms/step [{card}]")
-    return counts, result["ms_per_step"]
+    return counts, result["ms_per_step"], peak
+
+
+# name: the card-vs-CPU logits tolerance (rtol, atol) of the family's JAX test
+FAMILIES = {
+    "ddrnet_23_adb_bag": (1e-4, 5e-4),
+    "bisenet_adb_bag": (2e-4, 1e-3),
+}
+FAMILY_STEPS = 3
+FAMILY_CPU_HW = (256, 512)
+
+
+def conv_gflop(torch, spec, shape) -> float:
+    """GFLOP (2 per multiply-add) of every conv of `spec`'s network on an
+    NHWC input of `shape`, counted by forward hooks on meta tensors."""
+    from pidnet_tpu_torch.models import pidnet as M
+
+    total = 0
+
+    def count(mod, inputs, out):
+        nonlocal total
+        total += 2 * out.numel() * mod.weight[0].numel()
+
+    with torch.device("meta"):
+        model = M.module_for(spec)(spec)
+        for mod in model.modules():
+            if isinstance(mod, M.Conv2d):
+                mod.register_forward_hook(count)
+        model(torch.empty(shape))
+    return total / 1e9
+
+
+def fp32_final_head(torch, model, x):
+    """(class map, top-2 margin) of the final head of an augment model's
+    fp32 logits, upsampled to the input with align_corners=True."""
+    import torch.nn.functional as F
+
+    with torch.inference_mode():
+        logits = model(x)[-2]
+        up = F.interpolate(logits.permute(0, 3, 1, 2), size=tuple(x.shape[1:3]),
+                           mode="bilinear", align_corners=True)
+        top2 = up.topk(2, dim=1).values
+        return up.argmax(dim=1).int(), top2[:, 0] - top2[:, 1]
+
+
+def phase_families(torch, card: str, frames: list, pidnet: dict) -> dict:
+    """DDRNet-23 and BiSeNetV1 at their published widths from seeded
+    weights whose BN statistics were settled on frame 0 (calibrate_bn):
+    served folded bf16 at 1x1024x2048 against the fp32 model, the card's
+    fp32 logits against the CPU's, and FAMILY_STEPS train steps at
+    6x1024x1024 bf16 with the reference recipe; then each one's serving
+    ms/img, train ms/step and peak memory beside PIDNet-S's (`pidnet`).
+    Returns the launch counts of K1-K3 in the served and trained runs."""
+    import dataclasses
+
+    from pidnet_tpu_torch import engine
+    from pidnet_tpu_torch.convert.fold import calibrate_bn, fold_state_dict
+    from pidnet_tpu_torch.data.cityscapes import CLASS_WEIGHTS
+    from pidnet_tpu_torch.data.synthetic import synthetic_epoch
+    from pidnet_tpu_torch.losses.criterion import FullLoss
+    from pidnet_tpu_torch.models import pidnet as M
+    from pidnet_tpu_torch.ops import ce_front as cf
+    from pidnet_tpu_torch.ops import upsample_argmax as ua
+    from pidnet_tpu_torch.tools import speed
+    from pidnet_tpu_torch.tools.common import spec_from_name
+    from pidnet_tpu_torch.train.step import TrainState, make_train_step
+
+    dev = torch.device("cuda")
+    counts = {"upsample_argmax": 0, "ce_front_fwd": 0, "ce_front_bwd": 0}
+    images, labels, edges = synthetic_epoch(np.random.default_rng(SEED), 6, 1024)
+    batch = tuple(torch.from_numpy(a).to(dev) for a in (images, labels, edges))
+    rows = []
+    for name, (rtol, atol) in FAMILIES.items():
+        t_family = time.perf_counter()
+        spec = spec_from_name(name, 19, augment=True)
+        balance = M.balance_weights(spec)
+        # K1 once a step (pixel accuracy); K2 and K3 once a segmentation head
+        per_step = (1, len(balance), len(balance))
+        sd = M.init(spec, torch.Generator().manual_seed(SEED))
+        sd.update({k: v.cpu() for k, v in
+                   calibrate_bn(sd, spec, torch.from_numpy(frames[0]).to(dev)).items()})
+        spec1 = dataclasses.replace(spec, augment=False)
+        serve = engine.make_inference_classmap(engine.config(), spec1, fold_state_dict(sd, spec1),
+                                               folded=True, compute_dtype=torch.bfloat16)
+        ref_model = M.build(spec, sd, device=dev).to(memory_format=torch.channels_last)
+
+        ua.launches = 0  # the served path starts here
+        requests = 0
+        for i, frame in enumerate(frames):
+            x = torch.from_numpy(frame).to(dev)
+            got = serve(x)
+            requests += 1
+            ref, margin = fp32_final_head(torch, ref_model, x)
+            conf = margin > 1.0
+            confident = float((got == ref)[conf].float().mean())
+            print(f"families {name} frame {i}: bf16 folded vs fp32 unfolded on margin>1.0 "
+                  f"{confident:.6f} (>=0.9999, {float(conf.float().mean()):.3f} of pixels), "
+                  f"all {float((got == ref).float().mean()):.6f}; classes used "
+                  f"{int(got.unique().numel())}")
+            check(got.shape == (1, *frame.shape[1:3]) and got.dtype == torch.int32,
+                  f"{name}: served map {got.shape} {got.dtype}")
+            check(confident >= 0.9999, f"{name}: bf16 disagrees with fp32 on confident pixels")
+        times = timed_requests(torch, serve, x)
+        requests += WARM_REQUESTS + TIMED_REQUESTS
+        check(ua.launches == requests, f"{name}: K1 launched {ua.launches} times for "
+              f"{requests} requests")
+        counts["upsample_argmax"] += ua.launches
+        serve_ms = statistics.median(times)
+        del serve
+
+        # the card's fp32 logits against the CPU's, every head
+        h, w = FAMILY_CPU_HW
+        xs = np.ascontiguousarray(frames[0][:, :h, :w])
+        with torch.inference_mode():
+            card_heads = [o.cpu().numpy() for o in ref_model(torch.from_numpy(xs).to(dev))]
+            cpu_heads = [o.numpy() for o in
+                         M.build(spec, sd, device="cpu")(torch.from_numpy(xs))]
+        worst = max(float(np.max(np.abs(a - b) / (atol + rtol * np.abs(b))))
+                    for a, b in zip(card_heads, cpu_heads))
+        print(f"families {name}: card fp32 vs CPU fp32 logits, {len(card_heads)} heads at "
+              f"1x{h}x{w}: worst |diff| / (atol {atol} + rtol {rtol} |cpu|) = {worst:.3f} (<= 1)")
+        check(worst <= 1.0, f"{name}: the card's fp32 logits differ from the CPU's")
+        del ref_model, card_heads, cpu_heads
+
+        # FAMILY_STEPS steps of the reference recipe through engine.train_one_epoch
+        ts = TrainState.create(M.build(spec, sd, device=dev, train=True))
+        first = next(k for k, _ in ts.model.named_parameters())
+        w0 = ts.params()[first].clone()
+        stats0 = {k: v.clone() for k, v in ts.state().items()}
+        loss_fn = FullLoss(num_outputs=len(balance), ignore_label=255,
+                           class_weights=CLASS_WEIGHTS, use_ohem=True, ohem_thres=0.9,
+                           ohem_kept=131072, balance_weights=balance, sb_weights=1.0)
+        step = make_train_step(ts, loss_fn, momentum=0.9, weight_decay=5e-4,
+                               compute_dtype=torch.bfloat16)
+        history = []
+
+        def recording_step(*args):
+            history.append(step(*args))
+            return history[-1]
+
+        ua.launches = cf.fwd_launches = cf.bwd_launches = 0  # the trained path starts here
+        engine.train_one_epoch(engine.config(print_freq=10), 0, FAMILY_STEPS, TRAIN_NUM_ITERS,
+                               0.01, [(*batch, None, None)] * FAMILY_STEPS, recording_step, ts,
+                               {"writer": _NoWriter(), "train_global_steps": 0})
+        got = {"upsample_argmax": ua.launches, "ce_front_fwd": cf.fwd_launches,
+               "ce_front_bwd": cf.bwd_launches}
+        for k in counts:
+            counts[k] += got[k]
+        losses = [float(m["loss"]) for m in history]
+        moved = not torch.equal(ts.params()[first], w0)
+        stats_moved = all(not torch.equal(v, stats0[k]) for k, v in ts.state().items()
+                          if k.endswith("running_mean"))
+        want = dict(zip(got, (FAMILY_STEPS * n for n in per_step)))
+        print(f"families {name}: {len(losses)} train steps 6x1024x1024 bf16, losses "
+              f"{[round(v, 4) for v in losses]}, {first} moved {moved}, every BN running mean "
+              f"moved {stats_moved}, launches {got} (want {want}: "
+              f"{'/'.join(map(str, per_step))} a step)")
+        check(len(losses) == FAMILY_STEPS and all(np.isfinite(losses)),
+              f"{name}: a training loss is not finite")
+        check(moved and stats_moved, f"{name}: the step moved no weights or no BN statistics")
+        check(got == want, f"{name}: launches {got}, want {want}")
+        del ts, step, history
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        bench_step, placed = speed.make_train_bench(name, 19, (1024, 1024), 6, dev)
+        result = speed.measure_train(bench_step, placed, dev)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del bench_step, placed
+        torch.cuda.empty_cache()
+        print(f"families {name}: train speed bf16 6x1024x1024 (tools/speed.py --train): "
+              f"{speed.train_line(result)}, peak {peak:.2f} GiB allocated; the family took "
+              f"{time.perf_counter() - t_family:.1f} s host [{card}]")
+        rows.append((name, serve_ms, result["ms_per_step"], peak))
+    rows.append(("pidnet_s", pidnet["serve_ms"], pidnet["train_ms"], pidnet["peak_gib"]))
+    for name, serve_ms, train_ms, peak in rows:
+        serve_gf = conv_gflop(torch, spec_from_name(name, 19, augment=False), (1, 1024, 2048, 3))
+        train_gf = 3 * conv_gflop(torch, spec_from_name(name, 19, augment=True),
+                                  (6, 1024, 1024, 3))
+        print(f"families summary {name}: serve bf16 folded 1x1024x2048 median {serve_ms:.3f} "
+              f"ms/img (convs {serve_gf:.1f} GFLOP, {serve_gf / BF16_FLOPS * 1e12:.3f} ms at "
+              f"989 TFLOP/s); train bf16 6x1024x1024 {train_ms:.2f} ms/step (convs forward and "
+              f"backward {train_gf:.1f} GFLOP, {train_gf / BF16_FLOPS * 1e12:.3f} ms), peak "
+              f"{peak:.2f} GiB [{card}]")
+    return counts
 
 
 CITY_STEM = "_leftImg8bit.png"
@@ -1525,9 +1963,12 @@ def main() -> int:
     k2, k3 = phase_ce_front(torch, cf)
     k4 = phase_conv(torch, conv)
     torch.cuda.empty_cache()
-    phase_slice(torch, card)
+    sliced = phase_slice(torch, card)
     served = ua.launches
-    counts, speed_ms = phase_train(torch, card)
+    exported = phase_export(torch, card, sliced)
+    counts, speed_ms, peak = phase_train(torch, card)
+    families = phase_families(torch, card, sliced["frames"], {
+        "serve_ms": sliced["median_ms"], "train_ms": speed_ms, "peak_gib": peak})
     tree = build_city_tree(tempfile.mkdtemp(prefix="chip_smoke_data_", dir=ROOT))
     try:
         loaded = phase_data(torch, card, tree, speed_ms)
@@ -1535,18 +1976,16 @@ def main() -> int:
         clis = phase_cli(torch, card, tree)
     finally:
         shutil.rmtree(tree)
-    paths = (counts, loaded, evals, clis)
-    k1["launches"] = served + sum(c["upsample_argmax"] for c in paths)
-    k2["launches"] = sum(c["ce_front_fwd"] for c in paths)
-    k3["launches"] = sum(c["ce_front_bwd"] for c in paths)
-    print(f"launches on the main paths: upsample_argmax {served} serving + "
-          f"{counts['upsample_argmax']} training + {loaded['upsample_argmax']} data + "
-          f"{evals['upsample_argmax']} eval + {clis['upsample_argmax']} cli, ce_front_fwd "
-          f"{counts['ce_front_fwd']} training + {loaded['ce_front_fwd']} data + "
-          f"{evals['ce_front_fwd']} eval + {clis['ce_front_fwd']} cli, ce_front_bwd "
-          f"{counts['ce_front_bwd']} training + {loaded['ce_front_bwd']} data + "
-          f"{evals['ce_front_bwd']} eval + {clis['ce_front_bwd']} cli, conv3x3 "
-          f"{k4['launches']} conv_ab")
+    paths = {"training": counts, "families": families, "data": loaded, "eval": evals,
+             "cli": clis}
+    k1["launches"] = served + exported + sum(c["upsample_argmax"] for c in paths.values())
+    k2["launches"] = sum(c["ce_front_fwd"] for c in paths.values())
+    k3["launches"] = sum(c["ce_front_bwd"] for c in paths.values())
+    for name, extra in (("upsample_argmax", f"{served} serving + {exported} export + "),
+                        ("ce_front_fwd", ""), ("ce_front_bwd", "")):
+        print(f"launches on the main paths: {name} {extra}"
+              + " + ".join(f"{c[name]} {path}" for path, c in paths.items()))
+    print(f"launches on the main paths: conv3x3 {k4['launches']} conv_ab")
 
     print(card)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))

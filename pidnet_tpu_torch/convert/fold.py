@@ -5,7 +5,11 @@ pidnet_tpu/convert/fold.py).
   conv:  w' = w * g/sqrt(v+eps),  b' = beta - g*m/sqrt(v+eps) (+ the conv's
   own bias times the same scale, for the stem);
 - every remaining standalone BN (pre-activation BNs of the heads, PAPPM,
-  DAPPM and Bag) becomes a per-channel `scale`/`shift`.
+  DAPPM and Bag; BiSeNet's `bn_atten` and FFM `bn`, which follow a plain
+  conv that `fold_pairs` does not list, as the JAX fold records only
+  `ops.convbn` pairs) becomes a per-channel `scale`/`shift`.
+
+It works for every family (`models.pidnet.module_for`).
 
 The JAX package also emits space-to-depth stem weights (`s2d.*`); the port
 runs the canonical stem and has none. `models.pidnet.build(spec, sd,
@@ -46,7 +50,7 @@ def fold_state_dict(sd: dict, spec) -> dict:
     """Unfolded state dict -> folded state dict for `spec` (keys of heads
     the spec does not build are ignored)."""
     with torch.device("meta"):
-        model = M.PIDNet(spec)
+        model = M.module_for(spec)(spec)
     pairs = model.conv_bn_pairs()
     paired_bns = {bn for _, bn in pairs}
     folded = {}

@@ -13,6 +13,10 @@ pidnet_tpu/models/pidnet.py, whose canonical `_forward` this mirrors).
   input and weights are), and the activation dtype is the compute dtype;
 - every interior bilinear resize uses align_corners=False;
 - `augment=True` returns `[p_logits, logits, d_logits]`;
+- `module_for(spec)` maps a spec to its family's network: PIDNet here,
+  DDRNet-23 (models/ddrnet.py) and BiSeNetV1 (models/bisenet.py) built
+  from this file's blocks; `build`, `init` and convert/fold.py take any of
+  the three;
 - in training mode (`build(..., train=True)`) each BN normalises with its
   batch statistics and updates its running buffers in place; a bf16 input
   runs every conv in bf16 on fp32 weights cast at the conv (the JAX
@@ -140,6 +144,21 @@ def _norm(ch: int, folded: bool) -> nn.Module:
 def _paired_norm(ch: int, folded: bool) -> nn.Module:
     """The BN of a conv+BN pair: folded into the conv when `folded`."""
     return nn.Identity() if folded else BatchNorm(ch)
+
+
+class CBR(nn.Module):
+    """Conv then BN then ReLU, children named `conv`/`bn` (BiSeNet's
+    ConvBNReLU) — one foldable pair."""
+
+    fold_pairs = (("conv", "bn"),)
+
+    def __init__(self, cin, cout, k, stride=1, *, folded):
+        super().__init__()
+        self.conv = Conv2d(cin, cout, k, stride, bias=folded)
+        self.bn = _paired_norm(cout, folded)
+
+    def forward(self, x):
+        return relu(self.bn(self.conv(x)))
 
 
 class ConvBN(nn.Sequential):
@@ -366,7 +385,25 @@ class Bag(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-class PIDNet(nn.Module):
+class Network(nn.Module):
+    """A whole network of one family: NHWC image in, NHWC logits out.
+    `seg_heads` is the number of segmentation heads an augment model
+    returns before its boundary head, which is last: the number of
+    FullLoss balance weights (`balance_weights`)."""
+
+    seg_heads = 2
+
+    def conv_bn_pairs(self) -> list[tuple[str, str]]:
+        """(conv, bn) module names of every conv+BN pair, gathered from
+        each submodule's `fold_pairs`."""
+        return [
+            (f"{name}.{conv}", f"{name}.{bn}")
+            for name, mod in self.named_modules()
+            for conv, bn in getattr(mod, "fold_pairs", ())
+        ]
+
+
+class PIDNet(Network):
     def __init__(self, spec: PIDNetSpec, *, folded: bool = False):
         super().__init__()
         self.spec, self.folded = spec, folded
@@ -436,29 +473,40 @@ class PIDNet(nn.Module):
             return [h.permute(0, 2, 3, 1) for h in heads]
         return out.permute(0, 2, 3, 1)
 
-    def conv_bn_pairs(self) -> list[tuple[str, str]]:
-        """(conv, bn) module names of every conv+BN pair, gathered from
-        each submodule's `fold_pairs`."""
-        return [
-            (f"{name}.{conv}", f"{name}.{bn}")
-            for name, mod in self.named_modules()
-            for conv, bn in getattr(mod, "fold_pairs", ())
-        ]
+
+def module_for(spec) -> type[Network]:
+    """The network class of a spec's family: PIDNetSpec -> PIDNet,
+    DDRNetSpec -> DDRNet, BiSeNetSpec -> BiSeNet (the JAX package's
+    `forward_fn` extension point, keyed on the spec's type)."""
+    from pidnet_tpu_torch.models import bisenet, ddrnet  # they import this module
+
+    families = {PIDNetSpec: PIDNet, ddrnet.DDRNetSpec: ddrnet.DDRNet,
+                bisenet.BiSeNetSpec: bisenet.BiSeNet}
+    if type(spec) not in families:
+        raise TypeError(f"no network for spec {spec!r}")
+    return families[type(spec)]
 
 
-def build(spec: PIDNetSpec, state_dict: dict, *, folded: bool = False,
-          device=None, train: bool = False) -> PIDNet:
-    """A PIDNet on `device` (`resolve_device`: the card unless the caller
-    names another) holding `state_dict`'s tensors as fp32: in eval
-    mode, or with `train=True` an unfolded model in training mode, in
-    channels_last, whose parameters take gradients. Keys the model lacks,
-    such as the aux heads of an augment=False model, are ignored; a key the
-    model needs and `state_dict` lacks raises."""
+def balance_weights(spec) -> tuple[float, ...]:
+    """The reference recipe's LOSS.BALANCE_WEIGHTS for `spec`'s family:
+    0.4 for each auxiliary segmentation head, 1.0 for the final one."""
+    return (0.4,) * (module_for(spec).seg_heads - 1) + (1.0,)
+
+
+def build(spec, state_dict: dict, *, folded: bool = False,
+          device=None, train: bool = False) -> Network:
+    """The network of `spec`'s family (`module_for`) on `device`
+    (`resolve_device`: the card unless the caller names another) holding
+    `state_dict`'s tensors as fp32: in eval mode, or with `train=True` an
+    unfolded model in training mode, in channels_last, whose parameters
+    take gradients. Keys the model lacks, such as the aux heads of an
+    augment=False model, are ignored; a key the model needs and
+    `state_dict` lacks raises."""
     if train and folded:
         raise ValueError("a folded model has no BN to train")
     device = resolve_device(device)
     with torch.device("meta"):
-        model = PIDNet(spec, folded=folded)
+        model = module_for(spec)(spec, folded=folded)
     model = model.to_empty(device=device)
     want = model.state_dict().keys()
     missing = [k for k in want if k not in state_dict]
@@ -470,13 +518,13 @@ def build(spec: PIDNetSpec, state_dict: dict, *, folded: bool = False,
     return model.eval()
 
 
-def init(spec: PIDNetSpec, generator: torch.Generator | None = None) -> dict:
-    """Random unfolded weights on the CPU: kaiming-normal (fan_out, relu)
-    conv weights, uniform(+-1/sqrt(fan_in)) conv biases, BN gamma 1, beta
-    0, running mean 0, var 1. Draws follow module order and differ from
-    the JAX package's for the same seed."""
+def init(spec, generator: torch.Generator | None = None) -> dict:
+    """Random unfolded weights of `spec`'s network on the CPU:
+    kaiming-normal (fan_out, relu) conv weights, uniform(+-1/sqrt(fan_in))
+    conv biases, BN gamma 1, beta 0, running mean 0, var 1. Draws follow
+    module order and differ from the JAX package's for the same seed."""
     with torch.device("meta"):
-        model = PIDNet(spec)
+        model = module_for(spec)(spec)
     sd = {}
     for name, mod in model.named_modules():
         prefix = name + "."

@@ -18,6 +18,13 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # reference models/pidnet.py:12 (bn_mom)
 
 
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`t` in `dtype`, with no op at all where it already has it: a
+    `torch.export` trace records each `.to`, even one that changes
+    nothing, and a serving program pays for it on every call."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 def conv2d(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -32,10 +39,10 @@ def conv2d(
     With `compute_dtype`, input, weight and bias are cast to it and the
     output has it; otherwise the weight follows the input's dtype."""
     if compute_dtype is not None:
-        x = x.to(compute_dtype)
-    w = w.to(x.dtype)
+        x = cast(x, compute_dtype)
+    w = cast(w, x.dtype)
     if b is not None:
-        b = b.to(x.dtype)
+        b = cast(b, x.dtype)
     return F.conv2d(x, w, b, stride=stride, padding=w.shape[-1] // 2, groups=groups)
 
 
@@ -87,13 +94,19 @@ def batch_norm_train(
 def affine(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     """Per-channel x * scale + shift (a folded standalone BN)."""
     c = x.shape[1]
-    return x * scale.to(x.dtype).view(1, c, 1, 1) + shift.to(x.dtype).view(1, c, 1, 1)
+    return x * cast(scale, x.dtype).view(1, c, 1, 1) + cast(shift, x.dtype).view(1, c, 1, 1)
 
 
 def avg_pool2d(x: torch.Tensor, kernel: int, stride: int, padding: int) -> torch.Tensor:
     """AvgPool2d with count_include_pad=True, summed in fp32."""
     y = F.avg_pool2d(x.float(), kernel, stride, padding, count_include_pad=True)
     return y.to(x.dtype)
+
+
+def max_pool2d(x: torch.Tensor, kernel: int, stride: int, padding: int) -> torch.Tensor:
+    """MaxPool2d with torch's semantics: the padding never wins (the JAX
+    package pads with -inf). BiSeNet's ResNet-18 stem uses it."""
+    return F.max_pool2d(x, kernel, stride, padding)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

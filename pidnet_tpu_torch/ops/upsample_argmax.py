@@ -16,6 +16,13 @@ shared memory) goes to the kernel's per-pixel form.
 `upsample_argmax` launches a kernel for a CUDA tensor and raises on what
 the kernels do not take; for a CPU tensor it runs the plain version,
 `upsample_argmax_plain`. `launches` counts kernel launches.
+
+The same function is the custom operator
+`torch.ops.pidnet_tpu_torch.upsample_argmax(logits, oh, ow,
+align_corners)`, registered when this module is imported, so that
+`torch.export` records it as one node (convert/aot.py) and an exported
+program runs K1 on the card and the plain version on the CPU. Its fake
+returns the (N, oh, ow) int32 map; its launches count in `launches`.
 """
 
 from __future__ import annotations
@@ -118,3 +125,15 @@ def upsample_argmax(logits: torch.Tensor, out_hw, align_corners: bool) -> torch.
         raise RuntimeError(f"upsample_argmax kernel launch failed: cudaError {err}")
     launches += 1
     return out
+
+
+@torch.library.custom_op("pidnet_tpu_torch::upsample_argmax", mutates_args=())
+def upsample_argmax_op(logits: torch.Tensor, oh: int, ow: int,
+                       align_corners: bool) -> torch.Tensor:
+    """`upsample_argmax` as a custom operator (see the module docstring)."""
+    return upsample_argmax(logits, (oh, ow), align_corners)
+
+
+@upsample_argmax_op.register_fake
+def _upsample_argmax_fake(logits, oh, ow, align_corners):
+    return logits.new_empty((logits.shape[0], oh, ow), dtype=torch.int32)

@@ -22,16 +22,25 @@ from pidnet_tpu_torch.train import checkpoint as ckpt
 log = logging.getLogger("pidnet_tpu_torch")
 
 
-def build_spec(cfg, augment: bool = True) -> M.PIDNetSpec:
-    """The model by MODEL.NAME, by the reference's pidnet substring rule
-    (models/pidnet.py:186-191). The JAX package's DDRNet and BiSeNet
-    ablations are not ported yet."""
-    name = cfg.MODEL.NAME
-    if "ddrnet" in name or "bisenet" in name:
-        raise NotImplementedError(
-            f"MODEL.NAME {name!r}: DDRNet and BiSeNet are not ported yet (ROADMAP.md "
-            "Queue 1 item 7)")
-    return M.spec_for(name, cfg.DATASET.NUM_CLASSES, augment)
+def spec_from_name(name: str, num_classes: int, augment: bool = True):
+    """The model spec of a name: `ddrnet*` and `bisenet*` build the
+    reference's paper ablations (models/ddrnet.py, models/bisenet.py);
+    every other name follows the reference's pidnet substring rule
+    (models/pidnet.py:186-191)."""
+    if "ddrnet" in name:
+        from pidnet_tpu_torch.models import ddrnet
+
+        return ddrnet.spec_for(name, num_classes, augment)
+    if "bisenet" in name:
+        from pidnet_tpu_torch.models import bisenet
+
+        return bisenet.spec_for(name, num_classes, augment)
+    return M.spec_for(name, num_classes, augment)
+
+
+def build_spec(cfg, augment: bool = True):
+    """The model spec of MODEL.NAME (`spec_from_name`)."""
+    return spec_from_name(cfg.MODEL.NAME, cfg.DATASET.NUM_CLASSES, augment)
 
 
 def init_model(cfg, spec, seed: int = 0) -> dict:

@@ -1,5 +1,4 @@
-"""Checkpoint conversion CLI (counterpart of pidnet_tpu/tools/convert.py,
-without its serving export):
+"""Checkpoint conversion CLI (counterpart of pidnet_tpu/tools/convert.py):
 
     # train2k .npz or a reference .pt/.pth.tar -> the port's .pt
     python -m pidnet_tpu_torch.tools.convert --a pidnet-s --c 19 \
@@ -13,8 +12,20 @@ without its serving export):
     # get_seg_model loads
     python -m pidnet_tpu_torch.tools.convert --a pidnet-s --c 19 --export best.pt out/ref.pt
 
-The train and eval CLIs load every one of these containers themselves;
-this tool is for deployment. It works on host tensors and runs no model.
+    # a self-contained serving program (convert/aot.py): the folded bf16
+    # class-map pipeline traced with torch.export at a static input, the
+    # weights inside; run it with convert.aot.load_serving
+    python -m pidnet_tpu_torch.tools.convert --a pidnet-s --c 19 --export-aot \
+        --r 1024 2048 runs/train2k/weights_f16.npz out/pidnet_s_serve.pt2
+
+`--a` takes the PIDNet names and `ddrnet*`/`bisenet*`
+(`tools.common.spec_from_name`). The train and eval CLIs load every one of
+these containers themselves; this tool is for deployment. It works on host
+tensors and runs no model: `--export-aot` traces on the CPU with fake
+tensors. Its program runs K1 through a custom operator that has a CPU
+version, so one file serves the card and the CPU, and there is no
+`--platforms` (the JAX tool's lowering targets); a file is tied to the
+torch version that wrote it.
 """
 
 from __future__ import annotations
@@ -35,7 +46,8 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Convert checkpoints")
     parser.add_argument("src", help="input .npz (p./s. format) or .pt/.pth[.tar]")
     parser.add_argument("dst", help="output .pt")
-    parser.add_argument("--a", default="pidnet-s", help="pidnet-s, pidnet-m or pidnet-l")
+    parser.add_argument("--a", default="pidnet-s",
+                        help="pidnet-s, pidnet-m, pidnet-l, ddrnet_23_adb_bag or bisenet_adb_bag")
     parser.add_argument("--c", type=int, default=19, help="number of classes")
     parser.add_argument("--no-augment", action="store_true",
                         help="single-output (inference-only) parameter set, no aux heads")
@@ -47,6 +59,13 @@ def parse_args(argv=None):
                         help="write even when src matches fewer than half of the model's "
                         "tensors (default: refuse; a wrong --a/--c would write a mostly "
                         "random model)")
+    parser.add_argument("--export-aot", action="store_true",
+                        help="write a torch.export serving program (folded bf16 pipeline, "
+                        "weights inside) at the static input --r and --batch; run it with "
+                        "pidnet_tpu_torch.convert.aot.load_serving")
+    parser.add_argument("--r", type=int, nargs=2, metavar=("H", "W"),
+                        help="static input resolution for --export-aot")
+    parser.add_argument("--batch", type=int, default=1, help="static batch for --export-aot")
     return parser.parse_args(argv)
 
 
@@ -54,7 +73,11 @@ def main(argv=None):
     args = parse_args(argv)
     if args.export and args.fold:
         raise SystemExit("--export writes the unfolded torch layout; drop --fold")
-    spec = M.spec_for(args.a, args.c, augment=not args.no_augment)
+    if args.export_aot and not args.r:
+        raise SystemExit("--export-aot needs a static input size: --r H W")
+    # the serving program traces the single-head inference graph
+    augment = not args.no_augment and not args.export_aot
+    spec = common.spec_from_name(args.a, args.c, augment=augment)
     template = M.init(spec, torch.Generator().manual_seed(0))
     sd, n_loaded = common.load_weights(args.src, template)
     print(f"loaded {n_loaded} tensors from {args.src}")
@@ -64,7 +87,16 @@ def main(argv=None):
             f"{args.src} really hold a {args.a}/--c {args.c} model? (--force to write anyway)")
 
     os.makedirs(os.path.dirname(args.dst) or ".", exist_ok=True)
-    if args.export:
+    if args.export_aot:
+        from pidnet_tpu_torch.convert.aot import export_serving
+
+        blob = export_serving(sd, spec, tuple(args.r), batch=args.batch)
+        with open(args.dst, "wb") as f:
+            f.write(blob)
+        print(f"wrote serving program ({len(blob) / 2**20:.1f} MiB, input "
+              f"{args.batch}x{args.r[0]}x{args.r[1]}x3 f32, torch {torch.__version__}) to "
+              f"{args.dst}")
+    elif args.export:
         out = W.export_state_dict(sd)
         torch.save(out, args.dst)
         print(f"wrote torch state_dict ({len(out)} tensors) to {args.dst}")

@@ -1,5 +1,5 @@
 """FPS micro-benchmark CLI — the reference speed protocol on the card
-(counterpart of pidnet_tpu/tools/speed.py, without --aot).
+(counterpart of pidnet_tpu/tools/speed.py).
 
 SwiftNet method: 10 warmup iterations, calibrate the iteration count by
 doubling until the timed loop exceeds 1 s, then iterations = int(FPS * 6)
@@ -14,8 +14,14 @@ seeded device-resident batch of normal images, uniform random labels and
 10% edge pixels; 5 warm-up steps, then 20 steps timed as one window
 (ms/step, img/s), each step's time beside it, and the peak device memory.
 
+`--aot ARTIFACT` times a serving program (`tools.convert --export-aot`)
+under the same protocol instead of building a model: its input shape is
+the export's, read from the program, and --a/--c/--r/--batch are ignored.
+`--a` takes the PIDNet names and `ddrnet*`/`bisenet*`.
+
     python -m pidnet_tpu_torch.tools.speed --a pidnet-s --c 19 --r 1024 2048
     python -m pidnet_tpu_torch.tools.speed --train --batch 6 --r 1024 1024
+    python -m pidnet_tpu_torch.tools.speed --aot out/pidnet_s_serve.pt2
 """
 
 from __future__ import annotations
@@ -30,11 +36,13 @@ import torch
 from pidnet_tpu_torch import resolve_device
 from pidnet_tpu_torch.convert.fold import fold_state_dict
 from pidnet_tpu_torch.models import pidnet as M
+from pidnet_tpu_torch.tools.common import spec_from_name
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Speed Measurement")
-    parser.add_argument("--a", default="pidnet-s", help="pidnet-s, pidnet-m or pidnet-l")
+    parser.add_argument("--a", default="pidnet-s",
+                        help="pidnet-s, pidnet-m, pidnet-l, ddrnet_23_adb_bag or bisenet_adb_bag")
     parser.add_argument("--c", type=int, default=19, help="number of classes")
     parser.add_argument("--r", type=int, nargs=2, default=[1024, 2048], help="H W")
     parser.add_argument("--no-fold", action="store_true", help="keep BN (fp32 path)")
@@ -42,10 +50,14 @@ def parse_args(argv=None):
     parser.add_argument("--train", action="store_true",
                         help="time the bf16 training step (--batch is its batch; the "
                         "reference recipe is 6 at 1024x1024) instead of inference")
+    parser.add_argument("--aot", metavar="ARTIFACT",
+                        help="time a serving program (tools.convert --export-aot) instead of "
+                        "building a model; its input shape rules")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--profile", type=int, default=0, metavar="STEPS",
-                        help="also trace STEPS calls (or train steps) with torch.profiler "
-                        "and print the device-busy time per call and the kernels that take it")
+                        help="also trace STEPS calls (or train steps, or calls of --aot's "
+                        "program) with torch.profiler and print the device-busy time per call "
+                        "and the kernels that take it")
     return parser.parse_args(argv)
 
 
@@ -104,22 +116,35 @@ def device_breakdown(fn, x, device, steps: int, top: int = 12):
     return wall / steps * 1e3, busy_us / 1e3 / steps, rows
 
 
+def print_profile(fn, x, device, steps: int, unit: str) -> None:
+    """`device_breakdown` of `steps` calls as lines: wall and device-busy
+    ms per call, the idle share, and the kernels that take the time."""
+    wall, busy, rows = device_breakdown(fn, x, device, steps)
+    print(f"profile over {steps} {unit}s: wall {wall:.3f} ms/{unit}, device busy "
+          f"{busy:.3f} ms/{unit} ({busy / wall:.1%}), idle {1 - busy / wall:.1%}")
+    for key, ms, count in rows:
+        print(f"  {ms:8.4f} ms/{unit}  {count:5.1f} launches/{unit}  {key[:160]}")
+
+
 WARMUP_STEPS = 5
 TIMED_STEPS = 20
 
 
 def make_train_bench(arch: str, num_classes: int, hw, batch: int, device):
     """(step, batch): the bf16 train step of `arch` from seeded random
-    weights with the reference loss (OHEM kept scaled to the batch), and a
-    seeded synthetic batch on `device`."""
+    weights with the reference loss (OHEM kept scaled to the batch; the
+    family's balance weights, `M.balance_weights`), and a seeded synthetic
+    batch on `device`."""
     from pidnet_tpu_torch.losses.criterion import FullLoss
     from pidnet_tpu_torch.train.step import TrainState, make_train_step
 
     h, w = hw
-    spec = M.spec_for(arch, num_classes, augment=True)
+    spec = spec_from_name(arch, num_classes, augment=True)
     model = M.build(spec, M.init(spec, torch.Generator().manual_seed(0)), device=device,
                     train=True)
-    loss_fn = FullLoss(ignore_label=255, ohem_kept=max(1, 131072 * batch // 6))
+    balance = M.balance_weights(spec)
+    loss_fn = FullLoss(num_outputs=len(balance), balance_weights=balance, ignore_label=255,
+                       ohem_kept=max(1, 131072 * batch // 6))
     step = make_train_step(TrainState.create(model), loss_fn, compute_dtype=torch.bfloat16)
     rng = np.random.default_rng(0)
     img = rng.standard_normal((batch, h, w, 3)).astype(np.float32)
@@ -174,7 +199,7 @@ def train_line(r: dict) -> str:
 def build_speed_model(arch: str, num_classes: int, *, fold: bool, device) -> tuple:
     """(model, compute dtype): the folded bf16 model, or with fold=False
     the unfolded fp32 one, on `device` in channels_last."""
-    spec = M.spec_for(arch, num_classes, augment=False)
+    spec = spec_from_name(arch, num_classes, augment=False)
     sd = M.init(spec, torch.Generator().manual_seed(0))
     dtype = torch.bfloat16 if fold else torch.float32
     if fold:
@@ -196,17 +221,30 @@ def main_train(args, device) -> None:
     print(f"{args.a} train bf16 {h}x{w} batch={args.batch} on {name}: "
           f"{train_line(result)}{peak}")
     if args.profile:
-        wall, busy, rows = device_breakdown(lambda _: step(*placed, 0.01), None, device,
-                                            args.profile)
-        print(f"profile over {args.profile} steps: wall {wall:.3f} ms/step, device busy "
-              f"{busy:.3f} ms/step ({busy / wall:.1%}), idle {1 - busy / wall:.1%}")
-        for key, ms, count in rows:
-            print(f"  {ms:8.4f} ms/step  {count:5.1f} launches/step  {key[:160]}")
+        print_profile(lambda _: step(*placed, 0.01), None, device, args.profile, "step")
+
+
+def main_aot(args, device) -> None:
+    from pidnet_tpu_torch.convert.aot import load_serving
+
+    serve = load_serving(args.aot, device)
+    n, h, w, _ = serve.input_shape
+    x = torch.zeros(serve.input_shape, dtype=torch.float32, device=device)
+    print("=========AOT Artifact Speed Testing=========")
+    latency, fps = measure_fps(serve, x, device)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"{args.aot} {h}x{w} batch={n} on {name}: {latency:.3f} ms, {fps * n:.1f} FPS "
+          f"(f32 input -> full-res class map)")
+    if args.profile:
+        print_profile(serve, x, device, args.profile, "call")
+
 
 
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if args.aot:
+        return main_aot(args, device)
     if args.train:
         return main_train(args, device)
     h, w = args.r
@@ -221,11 +259,7 @@ def main(argv=None):
           f"{fps * args.batch:.1f} FPS")
     if args.profile:
         with torch.inference_mode():
-            wall, busy, rows = device_breakdown(model, x, device, args.profile)
-        print(f"profile over {args.profile} calls: wall {wall:.3f} ms/call, device busy "
-              f"{busy:.3f} ms/call ({busy / wall:.1%}), idle {1 - busy / wall:.1%}")
-        for key, ms, count in rows:
-            print(f"  {ms:8.4f} ms/call  {count:5.1f} launches/call  {key[:160]}")
+            print_profile(model, x, device, args.profile, "call")
 
 
 if __name__ == "__main__":

@@ -27,14 +27,18 @@ class AverageMeter:
 
 class TBWriter:
     """torch.utils.tensorboard's SummaryWriter when `tensorboard` is
-    installed, else a writer that does nothing."""
+    installed and opens, else a writer that does nothing: any exception
+    from importing or opening it (a broken install raises more than
+    ImportError) means no TensorBoard, as in the JAX package."""
 
     def __init__(self, log_dir: str):
         try:
             from torch.utils.tensorboard import SummaryWriter
 
             self._w = SummaryWriter(log_dir)
-        except ImportError:
+        except Exception as exc:  # the run goes on without TensorBoard
+            logging.getLogger("pidnet_tpu_torch").warning(
+                "no TensorBoard writer: %s: %s", type(exc).__name__, exc)
             self._w = None
 
     def add_scalar(self, tag: str, value: float, step: int) -> None:

@@ -41,7 +41,9 @@ def cuda_device():
 @pytest.mark.parametrize(
     "shape,out_hw",
     [((1, 128, 256, 19), (1024, 2048)), ((2, 16, 32, 19), (128, 256)),
-     ((1, 90, 120, 11), (720, 960)), ((1, 16, 32, 19), (16, 32)), ((1, 5, 7, 3), (1, 1))],
+     ((1, 90, 120, 11), (720, 960)), ((1, 16, 32, 19), (16, 32)), ((1, 5, 7, 3), (1, 1)),
+     # BiSeNet serves its logits at the input's size: K1 at scale 1
+     ((1, 1024, 2048, 19), (1024, 2048))],
 )
 def test_upsample_argmax_kernel_matches_plain(cuda_device, dtype, align, shape, out_hw):
     """>=0.9999 agreement, and exact wherever the fp32 top-2 margin of the
@@ -158,6 +160,38 @@ def test_served_classmap_launches_the_kernel(cuda_device):
     assert agree >= 0.9999
 
 
+@pytest.mark.parametrize("align", [True, False])
+def test_upsample_argmax_operator_launches_the_kernel(cuda_device, align):
+    """torch.ops.pidnet_tpu_torch.upsample_argmax on a CUDA tensor launches
+    K1 once (counted in the same `launches`) and gives the Python
+    function's map bit for bit."""
+    x = torch.from_numpy((np.random.default_rng(9).standard_normal((1, 128, 256, 19)) * 2)
+                         .astype(np.float32)).to(cuda_device, torch.bfloat16)
+    before = TU.launches
+    got = torch.ops.pidnet_tpu_torch.upsample_argmax(x, 1024, 2048, align)
+    assert TU.launches == before + 1
+    assert torch.equal(got, TU.upsample_argmax(x, (1024, 2048), align))
+    want = TU.upsample_argmax_plain(x, (1024, 2048), align)
+    assert (got == want).float().mean().item() >= 0.9999
+
+
+def test_serving_program_on_the_card_equals_eager(cuda_device):
+    """A program exported on the CPU and loaded on the card launches K1
+    once a call and gives the eager folded bf16 class map bit for bit."""
+    from pidnet_tpu_torch.convert.aot import export_serving, load_serving
+
+    spec = M.spec_for("pidnet_s", 19, augment=False)
+    sd = load_npz(WEIGHTS)
+    serve = load_serving(export_serving(sd, spec, (128, 256)))
+    x = np.random.default_rng(1).standard_normal((1, 128, 256, 3)).astype(np.float32)
+    before = TU.launches
+    got = serve(torch.from_numpy(x).to(cuda_device))
+    assert TU.launches == before + 1
+    eager = engine.make_inference_classmap(engine.config(), spec, fold_state_dict(sd, spec),
+                                           folded=True, compute_dtype=torch.bfloat16)(x)
+    assert got.dtype == torch.int32 and torch.equal(got, eager)
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("align", [True, False])
 @pytest.mark.parametrize(
@@ -168,7 +202,9 @@ def test_served_classmap_launches_the_kernel(cuda_device):
      ((6, 126, 128, 19), (1008, 1024)), ((1, 16, 512, 19), (128, 4096)),
      ((1, 16, 16, 40), (128, 128)),
      # the eval shape; 100 classes, four lanes a pixel
-     ((2, 128, 256, 19), (1024, 2048)), ((1, 16, 16, 100), (128, 128))],
+     ((2, 128, 256, 19), (1024, 2048)), ((1, 16, 16, 100), (128, 128)),
+     # BiSeNet's training shape: its heads arrive at the labels' size
+     ((6, 1024, 1024, 19), (1024, 1024))],
 )
 def test_ce_front_kernels_match_plain(cuda_device, dtype, align, shape, out_hw):
     """K2: w exact, ignored and out-of-range pixels 0, nll within 1e-4 of the
