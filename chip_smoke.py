@@ -135,7 +135,31 @@ Phases, each printing its own lines; any failure exits non-zero:
    to engine.testval called directly with a closure built the same way;
    the folded .pt with --fold-bn gives the class maps of the second run
    bit for bit, and without it the CLI exits non-zero. Each run's host
-   seconds, ms per step and ms per testval frame.
+   seconds, ms per step and ms per testval frame;
+9. parallel: data parallelism (parallel/mesh.py) on the one card. (a) A
+   world-1 NCCL process group: make_train_step over make_mesh at
+   6x1024x1024 against the one-device step from the same seeded weights,
+   in fp32 with TF32 off (first loss within rtol 1e-5, update cosine >
+   0.9999) and in bf16 with the recipe (first loss within rtol 1e-5; the
+   update cosine printed beside two one-device steps' own, since the bf16
+   backward is nondeterministic), 1/2/2 K1/K2/K3 launches a step; both
+   steps' ms/step in turns and the flat bucket's all-reduce time. (b) Two
+   gloo ranks on cuda:0, spawned by parallel/launch.py, 6 of 12 crops each,
+   against accum_steps=2 in this process on the same 12: in fp32 (TF32 off)
+   at 512x512 the ranks' losses and updates identical, loss rtol 1e-4,
+   update cosine > 0.9999, BN state rtol 1e-3 / atol 1e-5, 1/2/2 launches
+   a rank a step and 2/4/4 under accumulation; then in bf16 at 1024x1024
+   accumulation's ms/step beside the one-device step's, the two processes'
+   ms/step sharing the card (not a scaling figure) and peak GiB a rank.
+   (c) engine.make_inference_classmap over data_devices [cuda:0, cuda:0]
+   gives the slice phase's maps bit for bit with one K1 launch a replica;
+   the two ranks' fp32 eval step on one frame each, rank 1's masked, gives
+   confusion matrices (int64 through gloo) equal to one process's frame by
+   frame and the same global weight and loss. (d) tools.train --multihost
+   in-process under a world-1 torchrun environment (TRAIN.ACCUM_STEPS 2,
+   BATCH_SIZE_PER_GPU 3, END_EPOCH 1) on the data phase's tree: an NCCL
+   process group, one step, 2/4/4 launches a step and 1/2/0 a val frame,
+   and checkpoint.pt, best.pt and final_state.pt that load.
 
 The line before the last is a JSON object with one entry per kernel, its
 launches counted over every path that ran it; the last line is
@@ -1935,6 +1959,399 @@ def phase_cli(torch, card: str, tree: str) -> dict:
     return counts
 
 
+# the parallel phase: the crop of its fp32 gates, its timed steps a window
+PARALLEL_GATE_HW = 512
+PARALLEL_TIMED = 5
+PARALLEL_WORLD = 2
+
+
+def recipe_loss():
+    """FullLoss of the reference recipe: OHEM 0.9/131072, Cityscapes class
+    weights, balance weights (0.4, 1.0)."""
+    from pidnet_tpu_torch.data.cityscapes import CLASS_WEIGHTS
+    from pidnet_tpu_torch.losses.criterion import FullLoss
+
+    return FullLoss(ignore_label=255, class_weights=CLASS_WEIGHTS, use_ohem=True, ohem_thres=0.9,
+                    ohem_kept=131072, balance_weights=(0.4, 1.0), sb_weights=1.0)
+
+
+def kernel_counts(reset: bool = False) -> dict:
+    """K1-K3's launch counts, set to 0 first with `reset`."""
+    from pidnet_tpu_torch.ops import ce_front as cf
+    from pidnet_tpu_torch.ops import upsample_argmax as ua
+
+    if reset:
+        ua.launches = cf.fwd_launches = cf.bwd_launches = 0
+    return {"upsample_argmax": ua.launches, "ce_front_fwd": cf.fwd_launches,
+            "ce_front_bwd": cf.bwd_launches}
+
+
+def per_step(k1: int, k2: int, k3: int, steps: int = 1) -> dict:
+    return {"upsample_argmax": k1 * steps, "ce_front_fwd": k2 * steps, "ce_front_bwd": k3 * steps}
+
+
+def timed_steps(torch, step, batch, n: int = PARALLEL_TIMED) -> list:
+    """Host ms of `n` steps after one warm-up, each read to its loss and
+    ending in a sync."""
+    float(step(*batch, 0.01)["loss"])
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(step(*batch, 0.01)["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def seeded_state(torch, spec, dev):
+    from pidnet_tpu_torch.models import pidnet as M
+    from pidnet_tpu_torch.train.step import TrainState
+
+    sd = M.init(spec, torch.Generator().manual_seed(SEED))
+    return TrainState.create(M.build(spec, sd, device=dev, train=True))
+
+
+def flat_params(torch, ts):
+    return torch.cat([p.detach().reshape(-1) for p in ts.params().values()])
+
+
+def parallel_rank(rank: int, frames) -> dict:
+    """One of the parallel phase's two gloo ranks, both on cuda:0 (run by
+    parallel/launch.spawn): its 6 of 12 seeded crops at PARALLEL_GATE_HW
+    through one fp32 step (TF32 off), PARALLEL_TIMED bf16 steps on its 6
+    of 12 crops of 1024x1024, and the fp32 eval step of the train2k
+    weights on sample frame `rank` of `frames` (images, labels, edges),
+    rank 1's masked."""
+    import torch
+
+    from pidnet_tpu_torch.convert.weights import load_npz
+    from pidnet_tpu_torch.data.synthetic import synthetic_epoch
+    from pidnet_tpu_torch.models import pidnet as M
+    from pidnet_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from pidnet_tpu_torch.train.step import make_eval_step, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(-1, dev)
+    spec = M.spec_for("pidnet_s", 19, augment=True)
+    share = slice(6 * rank, 6 * rank + 6)
+    out = {"backend": mesh.backend, "size": mesh.size}
+
+    gate = synthetic_epoch(np.random.default_rng(SEED), 12, PARALLEL_GATE_HW)
+    ts = seeded_state(torch, spec, dev)
+    p0 = flat_params(torch, ts)
+    step = make_train_step(ts, recipe_loss(), mesh, momentum=0.9, weight_decay=5e-4)
+    kernel_counts(reset=True)
+    loss = float(step(*shard_batch(mesh, *(a[share] for a in gate)), 0.01)["loss"])
+    update = flat_params(torch, ts) - p0
+    out["gate"] = {"loss": loss, "launches": kernel_counts(),
+                   "digest": hashlib.sha256(update.cpu().numpy().tobytes()).hexdigest(),
+                   "update": update.cpu().numpy() if rank == 0 else None,
+                   "state": {k: v.cpu().numpy() for k, v in ts.state().items()}}
+    del ts, step, p0, update
+
+    full = synthetic_epoch(np.random.default_rng(SEED + 1), 12, 1024)
+    batch = shard_batch(mesh, *(a[share] for a in full))
+    ts = seeded_state(torch, spec, dev)
+    step = make_train_step(ts, recipe_loss(), mesh, momentum=0.9, weight_decay=5e-4,
+                           compute_dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_counts(reset=True)
+    times = timed_steps(torch, step, batch)
+    out["bf16"] = {"ms": times, "launches": kernel_counts(),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del ts, step, batch
+
+    model = M.build(spec, load_npz(WEIGHTS), device=dev).to(memory_format=torch.channels_last)
+    evaluate = make_eval_step(model, recipe_loss(), mesh, num_classes=19)
+    one = slice(rank, rank + 1)
+    kernel_counts(reset=True)
+    metrics, cms = evaluate(*(a[one] for a in frames), np.array([1.0 - rank], np.float32))
+    out["eval"] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                   "cms": cms.cpu().numpy(), "launches": kernel_counts()}
+    return out
+
+
+def phase_parallel(torch, card: str, tree: str, sliced: dict) -> dict:
+    """Data parallelism on the card: (a) world 1 over NCCL at the full
+    recipe against the one-device step; (b) two gloo ranks sharing cuda:0
+    against accum_steps=2 in this process; (c) `_data_parallel_infer`
+    over [cuda:0, cuda:0] against the slice phase's maps, and the two
+    ranks' eval step against one process's; (d) tools.train --multihost
+    under a world-1 torchrun environment. Returns the launch counts of
+    K1-K3 on these paths."""
+    import torch.distributed as dist
+
+    from pidnet_tpu_torch import engine
+    from pidnet_tpu_torch.convert.fold import fold_state_dict
+    from pidnet_tpu_torch.convert.weights import load_npz
+    from pidnet_tpu_torch.data.synthetic import synthetic_epoch
+    from pidnet_tpu_torch.data.transforms import gen_edge_gt
+    from pidnet_tpu_torch.models import pidnet as M
+    from pidnet_tpu_torch.parallel.launch import free_port, spawn
+    from pidnet_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_microbatches
+    from pidnet_tpu_torch.tools import train
+    from pidnet_tpu_torch.train import checkpoint as ckpt
+    from pidnet_tpu_torch.train.step import make_eval_step, make_train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    spec = M.spec_for("pidnet_s", 19, augment=True)
+    counts = per_step(0, 0, 0)
+
+    def counted(want: dict, what: str) -> dict:
+        got = kernel_counts()
+        check(got == want, f"parallel {what}: launches {got}, want {want}")
+        for k in counts:
+            counts[k] += got[k]
+        return got
+
+    def cosine(a, b) -> float:
+        a, b = a.double(), b.double()
+        return float(a @ b / (a.norm() * b.norm()))
+
+    sgd = dict(momentum=0.9, weight_decay=5e-4)
+
+    # (a) world 1 over NCCL, the full recipe
+    full = synthetic_epoch(np.random.default_rng(SEED + 1), 12, 1024)
+    batch = tuple(torch.from_numpy(a[:6]).to(dev) for a in full)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(-1, dev)
+        # the gates in fp32, TF32 off: the bf16 backward is nondeterministic
+        # (the boundary head's bf16 resize backward adds with atomics)
+        ts_mesh, ts_one = seeded_state(torch, spec, dev), seeded_state(torch, spec, dev)
+        p0 = flat_params(torch, ts_one)
+        kernel_counts(reset=True)
+        l_mesh = float(make_train_step(ts_mesh, recipe_loss(), mesh, **sgd)(*batch, 0.01)["loss"])
+        got = counted(per_step(1, 2, 2), "(a) fp32 step")
+        l_one = float(make_train_step(ts_one, recipe_loss(), **sgd)(*batch, 0.01)["loss"])
+        cos = cosine(flat_params(torch, ts_mesh) - p0, flat_params(torch, ts_one) - p0)
+        print(f"parallel (a) fp32, TF32 off, 6x1024x1024: mesh of {mesh.size} over "
+              f"{mesh.backend} on {mesh.device}; first loss {l_mesh:.7f} vs the one-device "
+              f"step's {l_one:.7f} (rtol {abs(l_mesh - l_one) / abs(l_one):.2e}, <= 1e-5); "
+              f"update cosine {cos:.8f} (> 0.9999); launches {got}")
+        check(mesh.backend == "nccl" and abs(l_mesh - l_one) <= 1e-5 * abs(l_one)
+              and cos > 0.9999, "parallel (a): the world-1 NCCL step differs from one device's")
+        del ts_mesh, ts_one
+        # bf16, the recipe: the first loss, and the update's cosine beside
+        # that of two one-device steps (the backward's own noise)
+        ts_mesh, ts_one, ts_two = (seeded_state(torch, spec, dev) for _ in range(3))
+        step_mesh = make_train_step(ts_mesh, recipe_loss(), mesh, compute_dtype=torch.bfloat16,
+                                    **sgd)
+        step_one = make_train_step(ts_one, recipe_loss(), compute_dtype=torch.bfloat16, **sgd)
+        kernel_counts(reset=True)
+        l_mesh = float(step_mesh(*batch, 0.01)["loss"])
+        got = counted(per_step(1, 2, 2), "(a) bf16 step")
+        l_one = float(step_one(*batch, 0.01)["loss"])
+        make_train_step(ts_two, recipe_loss(), compute_dtype=torch.bfloat16, **sgd)(*batch, 0.01)
+        cos = cosine(flat_params(torch, ts_mesh) - p0, flat_params(torch, ts_one) - p0)
+        rerun = cosine(flat_params(torch, ts_two) - p0, flat_params(torch, ts_one) - p0)
+        print(f"parallel (a) bf16, the recipe: first loss {l_mesh:.7f} vs {l_one:.7f} (rtol "
+              f"{abs(l_mesh - l_one) / abs(l_one):.2e}, <= 1e-5); update cosine {cos:.8f}, two "
+              f"one-device steps' {rerun:.8f} (not gated: the bf16 backward's noise); launches "
+              f"{got}")
+        check(abs(l_mesh - l_one) <= 1e-5 * abs(l_one),
+              "parallel (a): the bf16 world-1 NCCL step's loss differs from one device's")
+        del ts_two
+        t_mesh, t_one = [], []
+        for _ in range(2):  # in turns: mesh, one, mesh, one
+            kernel_counts(reset=True)
+            t_mesh += timed_steps(torch, step_mesh, batch)
+            counted(per_step(1, 2, 2, PARALLEL_TIMED + 1), "(a) timed steps")
+            t_one += timed_steps(torch, step_one, batch)
+        bucket = [torch.empty_like(p) for p in ts_mesh.params().values()]
+        ar = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh.all_reduce_mean(bucket)
+            torch.cuda.synchronize()
+            ar.append((time.perf_counter() - t0) * 1e3)
+        mb = sum(t.numel() for t in bucket) * 4 / 1e6
+        print(f"parallel (a) PIDNet-S bf16 6x1024x1024: world-1 NCCL step median "
+              f"{statistics.median(t_mesh):.2f} ms/step, one-device step "
+              f"{statistics.median(t_one):.2f} ms/step ({2 * PARALLEL_TIMED} steps each, in "
+              f"turns); the step's flat bucket ({mb:.1f} MB fp32: cat, NCCL all-reduce, scale) "
+              f"median {statistics.median(ar):.3f} ms over 20 [{card}]")
+        del ts_mesh, ts_one, step_mesh, step_one, bucket, p0
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (b) this process: accum_steps=2 on the 12 crops, fp32 gate then bf16 time
+    single = make_mesh(-1, dev)
+    gate = synthetic_epoch(np.random.default_rng(SEED), 12, PARALLEL_GATE_HW)
+    ts = seeded_state(torch, spec, dev)
+    p0 = flat_params(torch, ts)
+    step = make_train_step(ts, recipe_loss(), single, accum_steps=2, **sgd)
+    kernel_counts(reset=True)
+    l_acc = float(step(*shard_microbatches(single, 2, *gate), 0.01)["loss"])
+    counted(per_step(2, 4, 4), "(b) accum_steps=2 fp32 step")
+    upd_acc = flat_params(torch, ts) - p0
+    state_acc = {k: v.cpu().numpy() for k, v in ts.state().items()}
+    del ts, step, p0
+    ts = seeded_state(torch, spec, dev)
+    step = make_train_step(ts, recipe_loss(), single, accum_steps=2,
+                           compute_dtype=torch.bfloat16, **sgd)
+    micro = shard_microbatches(single, 2, *full)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_counts(reset=True)
+    t_acc = timed_steps(torch, step, micro)
+    counted(per_step(2, 4, 4, PARALLEL_TIMED + 1), "(b) accum_steps=2 bf16 steps")
+    peak_acc = torch.cuda.max_memory_allocated() / 2**30
+    del ts, step, micro, batch
+    torch.cuda.empty_cache()
+
+    goldens = np.load(GOLDENS)
+    images = np.concatenate(sliced["frames"])
+    labels = np.stack([goldens[k].astype(np.int32) for k in goldens.files])
+    edges = np.stack([gen_edge_gt(goldens[k].astype(np.uint8)).astype(np.float32)
+                      for k in goldens.files])
+    frames = (images, labels, edges)
+    t0 = time.perf_counter()
+    ranks = spawn(parallel_rank, PARALLEL_WORLD, frames, backend="gloo", timeout=600)
+    print(f"parallel (b): {PARALLEL_WORLD} gloo ranks on cuda:0 in "
+          f"{time.perf_counter() - t0:.1f} s host, spawn and CUDA start included")
+    r0, r1 = (r["gate"] for r in ranks)
+    cos = cosine(torch.from_numpy(r0["update"]), upd_acc.cpu())
+    worst = max(float(np.max(np.abs(r0["state"][k] - v) / (1e-5 + 1e-3 * np.abs(v))))
+                for k, v in state_acc.items())
+    print(f"parallel (b) fp32, TF32 off, 12x{PARALLEL_GATE_HW}x{PARALLEL_GATE_HW}: ranks' "
+          f"losses {r0['loss']:.7f} and {r1['loss']:.7f}, ranks' updates equal "
+          f"{r0['digest'] == r1['digest']}; accum_steps=2 in one process {l_acc:.7f} (rtol "
+          f"{abs(r0['loss'] - l_acc) / abs(l_acc):.2e}, <= 1e-4); update cosine {cos:.8f} "
+          f"(> 0.9999); BN state worst |d| / (1e-5 + 1e-3|x|) {worst:.3f} (<= 1); launches a "
+          f"rank {r0['launches']}, {r1['launches']}")
+    check(all(r["backend"] == "gloo" and r["size"] == PARALLEL_WORLD for r in ranks)
+          and r0["loss"] == r1["loss"] and r0["digest"] == r1["digest"]
+          and abs(r0["loss"] - l_acc) <= 1e-4 * abs(l_acc) and cos > 0.9999 and worst <= 1.0,
+          "parallel (b): two ranks differ from accum_steps=2")
+    for r in ranks:
+        check(r["gate"]["launches"] == per_step(1, 2, 2), f"parallel (b): rank launches "
+              f"{r['gate']['launches']}, want 1/2/2")
+        check(r["bf16"]["launches"] == per_step(1, 2, 2, PARALLEL_TIMED + 1),
+              f"parallel (b): rank bf16 launches {r['bf16']['launches']}")
+        for part in ("gate", "bf16", "eval"):
+            for k in counts:
+                counts[k] += r[part]["launches"][k]
+    acc_ms, one_ms = statistics.median(t_acc), statistics.median(t_one)
+    print(f"parallel (b) PIDNet-S bf16, global batch 12 of 1024x1024: accum_steps=2 in one "
+          f"process median {acc_ms:.2f} ms/step (one-device step of 6 {one_ms:.2f}: "
+          f"{acc_ms / one_ms:.2f}x), "
+          f"peak {peak_acc:.2f} GiB; two gloo processes sharing one card (not a scaling "
+          f"figure), 6 crops each: median "
+          + ", ".join(f"rank {i} {statistics.median(r['bf16']['ms']):.2f} ms/step peak "
+                      f"{r['bf16']['peak_gib']:.2f} GiB" for i, r in enumerate(ranks))
+          + f" [{card}]")
+
+    # (c) data-parallel inference and the two ranks' eval step
+    plain = M.spec_for("pidnet_s", 19, augment=False)
+    dp = engine.make_inference_classmap(engine.config(), plain,
+                                        fold_state_dict(load_npz(WEIGHTS), plain), folded=True,
+                                        compute_dtype=torch.bfloat16, data_devices=[dev, dev])
+    kernel_counts(reset=True)
+    maps = dp(images).cpu().numpy()
+    got = counted(per_step(2, 0, 0), "(c) _data_parallel_infer")
+    same = [bool(np.array_equal(maps[i], m)) for i, m in enumerate(sliced["maps"])]
+    print(f"parallel (c): _data_parallel_infer over [cuda:0, cuda:0], both frames in one call: "
+          f"maps equal to the slice phase's bit for bit {same}; launches {got}")
+    check(same == [True, True], "parallel (c): data-parallel maps differ from the slice phase's")
+    del dp
+    model = M.build(spec, load_npz(WEIGHTS), device=dev).to(memory_format=torch.channels_last)
+    evaluate = make_eval_step(model, recipe_loss(), num_classes=19)
+    sums, weight, cms1 = {}, 0.0, 0
+    for i in range(2):  # world 1, a val batch a frame as the train CLI's, frame 1 masked
+        m, c = evaluate(*(a[i:i + 1] for a in frames), np.array([1.0 - i], np.float32))
+        weight += float(m["weight"])
+        sums = {k: sums.get(k, 0.0) + float(v) * float(m["weight"]) for k, v in m.items()
+                if k != "weight"}
+        cms1 = cms1 + c.cpu().numpy()
+    del model, evaluate
+    e0, e1 = (r["eval"] for r in ranks)
+    loss1 = sums["loss"] / max(weight, 1.0)
+    print(f"parallel (c): the world-2 gloo eval step, frame 1 masked: matrices equal on both "
+          f"ranks {np.array_equal(e0['cms'], e1['cms'])}, equal to world 1's "
+          f"{np.array_equal(e0['cms'], cms1)} ({e0['cms'].dtype}, {int(e0['cms'][-1].sum())} "
+          f"pixels); global weight {e0['metrics']['weight']}, {e1['metrics']['weight']}; loss "
+          f"{e0['metrics']['loss']:.6f} vs world 1's {loss1:.6f}; launches a rank "
+          f"{e0['launches']}")
+    check(np.array_equal(e0["cms"], e1["cms"]) and np.array_equal(e0["cms"], cms1)
+          and e0["metrics"] == e1["metrics"] and e0["metrics"]["weight"] == weight == 1.0
+          and abs(e0["metrics"]["loss"] - loss1) <= 1e-6 * abs(loss1)
+          and e0["launches"] == per_step(1, 2, 0), "parallel (c): the world-2 eval step differs")
+
+    # (d) tools.train --multihost under a world-1 torchrun environment
+    work = os.path.join(tree, "dp_cli")
+    yaml = os.path.join(ROOT, "configs", "cityscapes", "pidnet_small_cityscapes.yaml")
+    run_dir = os.path.join(work, "output", "cityscapes", "pidnet_small_cityscapes")
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    seen, steps = {}, []
+    make = train.make_train_step
+
+    def recording_make(ts, loss_fn, mesh, **kw):
+        seen.update(backend=mesh.backend, size=mesh.size, accum=kw["accum_steps"])
+        step = make(ts, loss_fn, mesh, **kw)
+
+        def counting(*args):
+            steps.append(1)
+            return step(*args)
+
+        return counting
+
+    os.environ.update(env)
+    train.make_train_step = recording_make
+    kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    try:
+        train.main(["--multihost", "--cfg", yaml, "DATASET.ROOT", tree, "DATASET.TRAIN_SET",
+                    "list/cityscapes/train.lst", "DATASET.TEST_SET", "list/cityscapes/val.lst",
+                    "OUTPUT_DIR", os.path.join(work, "output"), "LOG_DIR",
+                    os.path.join(work, "log"), "MODEL.PRETRAINED", WEIGHTS, "WORKERS", "1",
+                    "TRAIN.END_EPOCH", "1", "TRAIN.BATCH_SIZE_PER_GPU", "3",
+                    "TRAIN.ACCUM_STEPS", "2"])
+        torch.cuda.synchronize()
+    finally:
+        train.make_train_step = make
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+        logger = logging.getLogger("pidnet_tpu_torch")
+        for handler in list(logger.handlers):
+            logger.removeHandler(handler)
+            handler.close()
+        logger.setLevel(logging.WARNING)
+    secs = time.perf_counter() - t0
+    got = counted({"upsample_argmax": 2 + 3, "ce_front_fwd": 4 + 2 * 3, "ce_front_bwd": 4},
+                  "(d) tools.train --multihost (2/4/4 a step, 1/2/0 a val frame)")
+    payload = ckpt.load(os.path.join(run_dir, "checkpoint.pt"))
+    loaded = [ckpt.load_model(os.path.join(run_dir, n)) for n in ("best.pt", "final_state.pt")]
+    losses = logged_losses(run_dir)
+    print(f"parallel (d): tools.train --multihost, world-1 torchrun environment: process group "
+          f"{seen.get('backend')} of {seen.get('size')}, accum_steps {seen.get('accum')}, "
+          f"{len(steps)} step of 2x3 crops of 1024x1024 and a validate of 3 frames in "
+          f"{secs:.1f} s host; checkpoint epoch {payload['epoch']} iter {payload['iter']}, "
+          f"best.pt and final_state.pt load ({len(loaded[1][0])} params); logged losses "
+          f"{losses}; launches {got} [{card}]")
+    check(seen == {"backend": "nccl", "size": 1, "accum": 2} and len(steps) == 1
+          and payload["epoch"] == 1 and all(len(p) for p, _ in loaded)
+          and losses and all(np.isfinite(losses)) and not dist.is_initialized(),
+          "parallel (d): the --multihost CLI run")
+    print(f"parallel: the phase took {time.perf_counter() - t_phase:.1f} s [{card}; host time]")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1974,10 +2391,11 @@ def main() -> int:
         loaded = phase_data(torch, card, tree, speed_ms)
         evals = phase_eval(torch, card, tree)
         clis = phase_cli(torch, card, tree)
+        parallel = phase_parallel(torch, card, tree, sliced)
     finally:
         shutil.rmtree(tree)
     paths = {"training": counts, "families": families, "data": loaded, "eval": evals,
-             "cli": clis}
+             "cli": clis, "parallel": parallel}
     k1["launches"] = served + exported + sum(c["upsample_argmax"] for c in paths.values())
     k2["launches"] = sum(c["ce_front_fwd"] for c in paths.values())
     k3["launches"] = sum(c["ce_front_bwd"] for c in paths.values())

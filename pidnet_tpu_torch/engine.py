@@ -13,7 +13,12 @@ upsample+argmax, ops/upsample_argmax.py), `make_ms_flip_inference` the
 multi-scale + flip test-time augmentation of TEST.MULTI_SCALE /
 TEST.FLIP_TEST. They take NHWC float images (numpy or tensor; H and W
 multiples of 64, as the network's 1/64 stage and 1/8 fusions need) and
-return tensors on the model's device.
+return tensors on the model's device. With `data_devices` the first two
+split the batch over one model replica per device (`_data_parallel_infer`).
+
+Over a data mesh (parallel/mesh.py) every rank runs `train_one_epoch` and
+`validate` on its own loader shard with the mesh's steps; only rank 0 logs
+the meters and writes TensorBoard.
 
 `cfg` needs MODEL.NUM_OUTPUTS, MODEL.ALIGN_CORNERS and TEST.OUTPUT_INDEX,
 PRINT_FREQ and TRAIN.END_EPOCH for training, DATASET.NUM_CLASSES and
@@ -61,15 +66,22 @@ def _place_on(device):
     return place
 
 
+def _is_primary(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
 def train_one_epoch(cfg, epoch: int, epoch_iters: int, num_iters: int, base_lr: float, loader,
                     step_fn, ts, writer_dict, place_batch=None, should_stop=None,
-                    start_iter: int = 0):
+                    start_iter: int = 0, mesh=None):
     """One training epoch (reference utils/function.py:21-75); returns
     (ts, completed iterations).
 
     `loader` yields (images, labels, edges, _, _); `place_batch(images,
     labels, edges)` puts a batch where `step_fn(images, labels, edges, lr)`
-    runs it, by default on the device of `ts.model`. The update at global
+    runs it, by default on `mesh`'s device (this rank's share, as
+    `parallel.shard_batch` places it) or on the device of `ts.model`; under gradient
+    accumulation the caller passes `parallel.shard_microbatches`. Over a
+    mesh only rank 0 logs the meters and writes TensorBoard. The update at global
     iteration g uses poly(g-1), as the reference adjusts the LR after each
     step. One step's metrics stay in flight unsynced and are folded into
     the meters at the next step, and at once on PRINT_FREQ iterations; a
@@ -77,7 +89,9 @@ def train_one_epoch(cfg, epoch: int, epoch_iters: int, num_iters: int, base_lr: 
     polled before each step. `start_iter` resumes mid-epoch: the loader
     skips that many batches (`skip_batches`)."""
     if place_batch is None:
-        place_batch = _place_on(next(ts.model.parameters()).device)
+        place_batch = _place_on(next(ts.model.parameters()).device if mesh is None
+                                else mesh.device)
+    primary = _is_primary(mesh)
 
     batch_time = AverageMeter()
     ave_loss = AverageMeter()
@@ -126,18 +140,19 @@ def train_one_epoch(cfg, epoch: int, epoch_iters: int, num_iters: int, base_lr: 
         if i_iter % cfg.PRINT_FREQ == 0:
             fold(*pending)
             pending = None
-            log.info(
-                "Epoch: [%d/%d] Iter:[%d/%d], Time: %.2f, lr: [%s], Loss: %.6f, Acc:%.6f, "
-                "Semantic loss: %.6f, BCE loss: %.6f, SB loss: %.6f",
-                epoch, cfg.TRAIN.END_EPOCH, i_iter, epoch_iters, batch_time.average(),
-                f"{lr:.6g}", ave_loss.average(), ave_acc.average(), avg_sem_loss.average(),
-                avg_bce_loss.average(),
-                ave_loss.average() - avg_sem_loss.average() - avg_bce_loss.average())
+            if primary:
+                log.info(
+                    "Epoch: [%d/%d] Iter:[%d/%d], Time: %.2f, lr: [%s], Loss: %.6f, Acc:%.6f, "
+                    "Semantic loss: %.6f, BCE loss: %.6f, SB loss: %.6f",
+                    epoch, cfg.TRAIN.END_EPOCH, i_iter, epoch_iters, batch_time.average(),
+                    f"{lr:.6g}", ave_loss.average(), ave_acc.average(), avg_sem_loss.average(),
+                    avg_bce_loss.average(),
+                    ave_loss.average() - avg_sem_loss.average() - avg_bce_loss.average())
 
     if pending is not None:
         fold(*pending)
 
-    if ave_loss.count:
+    if ave_loss.count and primary:
         writer = writer_dict["writer"]
         writer.add_scalar("train_loss", ave_loss.average(), writer_dict["train_global_steps"])
         writer_dict["train_global_steps"] += 1
@@ -145,7 +160,7 @@ def train_one_epoch(cfg, epoch: int, epoch_iters: int, num_iters: int, base_lr: 
 
 
 def validate(cfg, loader, eval_step, writer_dict, num_outputs: int = 2, place_batch=None,
-             should_stop=None):
+             should_stop=None, mesh=None):
     """Loss and per-output confusion matrices over a labelled loader
     (reference utils/function.py:77-128); returns (ave_loss, mean IoU of
     the last output, its IoU array).
@@ -160,7 +175,10 @@ def validate(cfg, loader, eval_step, writer_dict, num_outputs: int = 2, place_ba
     weighted by `metrics["weight"]`, the matrices accumulate on the host in
     float64. `should_stop()` is polled before each batch; when it stops the
     epoch early the partial results are returned and no scalar is
-    written."""
+    written. Over a `mesh` each rank reads its loader shard; the mesh's
+    eval step returns the global weight and matrices, so every rank returns
+    the same results, and only rank 0 logs them and writes TensorBoard."""
+    primary = _is_primary(mesh)
     ave_loss = AverageMeter()
     num_classes = cfg.DATASET.NUM_CLASSES
     cms = np.zeros((num_outputs, num_classes, num_classes), np.float64)
@@ -192,15 +210,16 @@ def validate(cfg, loader, eval_step, writer_dict, num_outputs: int = 2, place_ba
         metrics, batch_cms = eval_step(*batch)
         cms += (batch_cms.cpu().numpy() if torch.is_tensor(batch_cms) else np.asarray(batch_cms))
         ave_loss.update(float(metrics["loss"]), float(metrics.get("weight", mask.sum())))
-        if idx % 10 == 0:
+        if idx % 10 == 0 and primary:
             log.info("validating: %d", idx)
 
     for i in range(num_outputs):
         iou, miou = iou_from_cm(cms[i])
-        log.info("%d %s %s", i, iou, miou)
+        if primary:
+            log.info("%d %s %s", i, iou, miou)
     iou_array, mean_iou = iou_from_cm(cms[-1])
 
-    if not stopped:
+    if not stopped and primary:
         writer = writer_dict["writer"]
         writer.add_scalar("valid_loss", ave_loss.average(), writer_dict["valid_global_steps"])
         writer.add_scalar("valid_mIoU", mean_iou, writer_dict["valid_global_steps"])
@@ -267,10 +286,40 @@ def _runner(cfg, model, dev, compute_dtype):
     return run
 
 
-def make_inference(cfg, spec, state_dict, *, folded=False, compute_dtype=None, device=None):
+def _data_parallel_infer(fn, devices):
+    """An inference closure over one model replica per device: `fn(device)`
+    returns a one-device closure, the batch is split along dim 0 into
+    len(devices) equal parts (it must divide: engine.testval/test pad it
+    with `batch_pad`), each part runs on its replica, and the results are
+    gathered on the first device. One host thread calls the replicas in
+    order; each call enqueues its device's work without a sync, so the
+    devices' work overlaps. Eval-mode BN has no cross-sample operation, so
+    each part's result is what the one-device closure gives that part."""
+    devices = [resolve_device(d) for d in devices]
+    replicas = [fn(d) for d in devices]
+
+    def infer(x):
+        x = _tensor(x)
+        if x.shape[0] % len(replicas):
+            raise ValueError(f"a batch of {x.shape[0]} does not split over {len(replicas)} "
+                             "devices; pad it to a multiple (batch_pad)")
+        outs = [run(part) for run, part in zip(replicas, x.chunk(len(replicas)))]
+        return torch.cat([o.to(devices[0]) for o in outs])
+
+    return infer
+
+
+def make_inference(cfg, spec, state_dict, *, folded=False, compute_dtype=None, device=None,
+                   data_devices=None):
     """Single-image inference closure: model -> TEST.OUTPUT_INDEX ->
     bilinear to input size (align_corners=cfg.MODEL.ALIGN_CORNERS) ->
-    exp(), as (N,H,W,C) float32."""
+    exp(), as (N,H,W,C) float32. With `data_devices` (a list, one entry
+    per replica; a device may repeat) the batch is split over them
+    (`_data_parallel_infer`) and `device` is not used."""
+    if data_devices is not None:
+        return _data_parallel_infer(
+            lambda d: make_inference(cfg, spec, state_dict, folded=folded,
+                                     compute_dtype=compute_dtype, device=d), data_devices)
     model, dev = _prepare(spec, state_dict, folded, compute_dtype, device)
     run = _runner(cfg, model, dev, compute_dtype)
 
@@ -284,12 +333,17 @@ def make_inference(cfg, spec, state_dict, *, folded=False, compute_dtype=None, d
 
 
 def make_inference_classmap(cfg, spec, state_dict, *, folded=False, compute_dtype=None,
-                            device=None):
+                            device=None, data_devices=None):
     """Class-map inference closure: model -> TEST.OUTPUT_INDEX -> fused
     bilinear-upsample+argmax -> (N,H,W) int32. Argmax-equivalent to
     `make_inference` (exp() is monotonic) while never materializing
     full-resolution logits; on CUDA the upsample+argmax is the hand-written
-    kernel."""
+    kernel. `data_devices` as in `make_inference`."""
+    if data_devices is not None:
+        return _data_parallel_infer(
+            lambda d: make_inference_classmap(cfg, spec, state_dict, folded=folded,
+                                              compute_dtype=compute_dtype, device=d),
+            data_devices)
     model, dev = _prepare(spec, state_dict, folded, compute_dtype, device)
     run = _runner(cfg, model, dev, compute_dtype)
 

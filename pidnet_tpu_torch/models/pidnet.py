@@ -25,6 +25,7 @@ pidnet_tpu/models/pidnet.py, whose canonical `_forward` this mirrors).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
@@ -89,7 +90,9 @@ class Conv2d(nn.Module):
 class BatchNorm(nn.Module):
     """BatchNorm, eps 1e-5; keys weight/bias/running_mean/running_var. In
     training mode it normalises with the batch statistics and updates the
-    running buffers in place (momentum 0.1, unbiased variance)."""
+    running buffers in place (momentum 0.1, unbiased variance); with
+    `sync` set (a `parallel.mesh.Mesh`, see `sync_batch_norm`) the
+    statistics are the mesh's global batch's."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -97,17 +100,33 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(ch))
         self.register_buffer("running_mean", torch.empty(ch))
         self.register_buffer("running_var", torch.empty(ch))
+        self.sync = None
 
     def forward(self, x):
         if not self.training:
             return batch_norm_infer(x, self.weight, self.bias, self.running_mean,
                                     self.running_var)
         y, mean, var = batch_norm_train(x, self.weight, self.bias, self.running_mean,
-                                        self.running_var)
+                                        self.running_var, sync=self.sync)
         with torch.no_grad():
             self.running_mean.copy_(mean)
             self.running_var.copy_(var)
         return y
+
+
+@contextlib.contextmanager
+def sync_batch_norm(model: nn.Module, mesh):
+    """Inside, every BatchNorm of `model` in training mode takes the batch
+    statistics of `mesh`'s global batch (None: its own); the train step's
+    sync BN. Each family builds its BNs from this module's BatchNorm."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.sync = mesh
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.sync = None
 
 
 class Affine(nn.Module):

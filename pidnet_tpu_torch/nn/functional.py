@@ -67,6 +67,7 @@ def batch_norm_train(
     running_var: torch.Tensor,
     *,
     momentum: float = BN_MOMENTUM,
+    sync=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training-mode BN over N, H, W of NCHW `x`. Returns (y,
     new_running_mean, new_running_var); the running statistics carry no
@@ -76,10 +77,18 @@ def batch_norm_train(
     max(mean_sq - mean^2, 0), and the normalisation runs in x's dtype as
     x*scale + shift, as the JAX package's batch_norm_train does (cuDNN's
     bf16 BN normalises in fp32 and forms the variance another way, so
-    F.batch_norm is not the same function)."""
+    F.batch_norm is not the same function, nor is nn.SyncBatchNorm).
+
+    With `sync` (a `parallel.mesh.Mesh`) the batch statistics are those of
+    the mesh's global batch, sync BN as the JAX function's `axis_name`
+    computes it: (mean, mean_sq) are pmean'd across the ranks and the
+    unbiased variance counts n x the mesh's size values."""
     n = x.numel() // x.shape[1]
     mean = torch.mean(x, dim=(0, 2, 3), dtype=torch.float32)
     mean_sq = torch.mean(torch.square(x.float()), dim=(0, 2, 3))
+    if sync is not None:
+        mean, mean_sq = sync.pmean(torch.stack([mean, mean_sq])).unbind(0)
+        n *= sync.size
     var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
     scale = torch.rsqrt(var + BN_EPS) * gamma
     shift = beta - mean * scale

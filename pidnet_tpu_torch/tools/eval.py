@@ -13,7 +13,11 @@ the test-time augmentation; otherwise --fold-bn takes the class-map
 closure (bf16 under XLA.BF16_INFERENCE, the fused upsample+argmax kernel)
 and its absence the fp32 probabilities.
 
-One device: DEVICES > 1 (data parallelism) and --spatial are not ported.
+DEVICES > 1 (or -1 on a machine with several cards) without the
+test-time augmentation evaluates data-parallel: one model replica per card
+(engine._data_parallel_infer), batches of one frame per replica, the last
+padded; with --device cpu, that many replicas on the CPU. Asking for more
+cards than the machine has raises. --spatial is not ported.
 """
 
 from __future__ import annotations
@@ -45,6 +49,21 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def _data_devices(devices: int, dev: torch.device):
+    """The replicas' devices for DEVICES (-1 or 0: every card, one on the
+    CPU), or None for one device. Raises when the machine has fewer cards."""
+    if devices in (-1, 0):
+        devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if devices <= 1:
+        return None
+    if dev.type == "cpu":
+        return [dev] * devices
+    if devices > torch.cuda.device_count():
+        raise RuntimeError(f"DEVICES {devices}: this machine has {torch.cuda.device_count()} "
+                           "CUDA device(s)")
+    return [torch.device("cuda", i) for i in range(devices)]
+
+
 def main(argv=None):
     """Returns (mean IoU, IoU array, pixel accuracy, mean accuracy) of a
     labelled list, None for a Cityscapes test list."""
@@ -53,10 +72,8 @@ def main(argv=None):
         raise NotImplementedError("--spatial is not ported yet (ROADMAP.md Queue 1 item 6)")
     dev = resolve_device(args.device)
     cfg = load_config(args.cfg, args.opts)
-    if cfg.DEVICES not in (-1, 0, 1):
-        raise NotImplementedError(
-            f"DEVICES {cfg.DEVICES}: data-parallel evaluation is not ported yet (ROADMAP.md "
-            "Queue 1 item 5); the port evaluates on one device")
+    tta = bool(cfg.TEST.MULTI_SCALE or cfg.TEST.FLIP_TEST)
+    data_devices = None if tta else _data_devices(cfg.DEVICES, dev)
     logger, final_output_dir, _ = create_logger(cfg, args.cfg, "test")
     logger.info("%s", cfg)
 
@@ -81,10 +98,12 @@ def main(argv=None):
         cfg.DATASET.DATASET, root=cfg.DATASET.ROOT, list_path=cfg.DATASET.TEST_SET,
         num_classes=cfg.DATASET.NUM_CLASSES, multi_scale=False, flip=False,
         ignore_label=cfg.TRAIN.IGNORE_LABEL, base_size=cfg.TEST.BASE_SIZE, crop_size=test_size)
-    testloader = Loader(test_dataset, 1, shuffle=False, num_workers=0)
+    batch_pad = len(data_devices) if data_devices else 1
+    testloader = Loader(test_dataset, batch_pad, shuffle=False, num_workers=0)
 
     compute_dtype = torch.bfloat16 if args.fold_bn and cfg.XLA.BF16_INFERENCE else None
-    if cfg.TEST.MULTI_SCALE or cfg.TEST.FLIP_TEST:
+    kw = {}
+    if tta:
         # summed multi-scale (+ flip-averaged) probabilities: the argmax of a
         # sum is not a per-scale argmax, so no class-map kernel here
         logger.info("=> TTA eval: scales %s, flip=%s",
@@ -95,13 +114,18 @@ def main(argv=None):
         # class maps through the fused upsample+argmax, or the reference's
         # full-resolution probabilities
         make = engine.make_inference_classmap if args.fold_bn else engine.make_inference
-    infer = make(cfg, spec, sd, folded=args.fold_bn, compute_dtype=compute_dtype, device=dev)
+        if data_devices:
+            logger.info("=> data-parallel eval over %d devices", len(data_devices))
+            kw = {"data_devices": data_devices}
+    infer = make(cfg, spec, sd, folded=args.fold_bn, compute_dtype=compute_dtype, device=dev,
+                 **kw)
 
     if "test" in cfg.DATASET.TEST_SET and "city" in cfg.DATASET.DATASET:
-        engine.test(cfg, test_dataset, testloader, infer, sv_dir=final_output_dir)
+        engine.test(cfg, test_dataset, testloader, infer, sv_dir=final_output_dir,
+                    batch_pad=batch_pad)
         return None
     mean_iou, iou_array, pixel_acc, mean_acc = engine.testval(
-        cfg, test_dataset, testloader, infer, sv_dir=final_output_dir)
+        cfg, test_dataset, testloader, infer, sv_dir=final_output_dir, batch_pad=batch_pad)
     logger.info("MeanIU: %.4f, Pixel_Acc: %.4f, Mean_Acc: %.4f", mean_iou, pixel_acc, mean_acc)
     logger.info("%s", iou_array)
     return mean_iou, iou_array, pixel_acc, mean_acc

@@ -1,8 +1,9 @@
 """Training CLI (counterpart of pidnet_tpu/tools/train.py), the reference's
-tools/train.py UX on one device:
+tools/train.py UX on one device or, data-parallel, one process per device:
 
     python -m pidnet_tpu_torch.tools.train --cfg configs/cityscapes/pidnet_small_cityscapes.yaml \
         [--device cpu] [--seed N] [KEY VALUE ...]
+    torchrun --nproc-per-node N -m pidnet_tpu_torch.tools.train --multihost --cfg ... [KEY VALUE]
 
 Each epoch trains through `engine.train_one_epoch`, validates (every 5
 epochs until the last 100, then every epoch, and right after a resume) and
@@ -14,10 +15,19 @@ XLA.PROFILE_DIR writes a Chrome trace of the first epoch there
 (torch.profiler). XLA.BF16_TRAIN and XLA.BF16_EVAL pick the compute dtype
 of the train and validation steps.
 
-One device: DEVICES other than -1, 0 or 1, --multihost and
-TRAIN.ACCUM_STEPS > 1 (data parallelism) and --spatial are not ported.
-XLA.SYNC_BN is the same function on one device; XLA.PAD_BATCH, a TPU
-layout device, is ignored.
+Data parallelism (parallel/mesh.py): --multihost joins the process group
+from torchrun's environment (nccl on cuda:LOCAL_RANK, gloo with --device
+cpu); DEVICES must be -1 (or 0) or the number of processes. The global
+batch is TRAIN.BATCH_SIZE_PER_GPU x processes x TRAIN.ACCUM_STEPS; each
+rank loads its 1/processes of every epoch, and TRAIN.ACCUM_STEPS A splits
+a rank's batch into A microbatches run as virtual shards (the reference's
+2 GPUs x 6 crops on one card: TRAIN.ACCUM_STEPS 2). Validation shards the
+val list over the ranks one sample each. XLA.SYNC_BN takes BN statistics
+over the global batch (not with TRAIN.ACCUM_STEPS > 1). Only rank 0 logs,
+writes TensorBoard and the checkpoints; every rank reads a resume
+checkpoint. A SIGTERM stops the rank that receives it: every rank must
+receive it, as in the JAX package. --spatial is not ported; XLA.PAD_BATCH,
+a TPU layout device, is ignored.
 """
 
 from __future__ import annotations
@@ -29,12 +39,14 @@ import timeit
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pidnet_tpu_torch import engine, resolve_device
 from pidnet_tpu_torch.config import load_config
 from pidnet_tpu_torch.data import Loader, build_dataset
 from pidnet_tpu_torch.losses.criterion import FullLoss
 from pidnet_tpu_torch.models import pidnet as M
+from pidnet_tpu_torch.parallel.mesh import init_process_group, make_mesh, shard_microbatches
 from pidnet_tpu_torch.tools import common
 from pidnet_tpu_torch.train import checkpoint as ckpt
 from pidnet_tpu_torch.train.step import TrainState, make_eval_step, make_train_step
@@ -51,7 +63,8 @@ def parse_args(argv=None):
                         help="RNG seed; default cfg.SEED (304, as the reference's "
                         "tools/train.py:37)")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-host training: not ported (ROADMAP.md Queue 1 item 5)")
+                        help="data-parallel training, one process per device: join the process "
+                        "group from torchrun's environment")
     parser.add_argument("--spatial", type=int, default=0, metavar="N",
                         help="H-sharding over N devices: not ported (ROADMAP.md Queue 1 item 6)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -59,48 +72,82 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def build_data(cfg, seed: int):
+def build_data(cfg, seed: int, num_shards: int = 1, shard_index: int = 0):
     """(train dataset, train loader, val loader) as the JAX package's
-    tools/train.py builds them on one process: train batches of
-    TRAIN.BATCH_SIZE_PER_GPU crops (drop_last), val batches of 1, both
-    with cfg.WORKERS threads, the train data and order seeded by `seed`."""
+    tools/train.py builds them for one process of `num_shards`: train
+    batches of TRAIN.BATCH_SIZE_PER_GPU x TRAIN.ACCUM_STEPS crops
+    (drop_last), val batches of 1, both with cfg.WORKERS threads and this
+    process's `shard_index` share of each epoch, the train data and order
+    seeded by `seed`."""
     common_kw = dict(root=cfg.DATASET.ROOT, num_classes=cfg.DATASET.NUM_CLASSES,
                      ignore_label=cfg.TRAIN.IGNORE_LABEL, seed=seed)
+    shard_kw = dict(num_shards=num_shards, shard_index=shard_index)
     train_dataset = build_dataset(
         cfg.DATASET.DATASET, list_path=cfg.DATASET.TRAIN_SET, multi_scale=cfg.TRAIN.MULTI_SCALE,
         flip=cfg.TRAIN.FLIP, base_size=cfg.TRAIN.BASE_SIZE,
         crop_size=(cfg.TRAIN.IMAGE_SIZE[1], cfg.TRAIN.IMAGE_SIZE[0]),
         scale_factor=cfg.TRAIN.SCALE_FACTOR, cache=cfg.DATASET.CACHE,
         cache_gb=cfg.DATASET.CACHE_GB, **common_kw)
-    trainloader = Loader(train_dataset, cfg.TRAIN.BATCH_SIZE_PER_GPU, shuffle=cfg.TRAIN.SHUFFLE,
-                         drop_last=True, num_workers=cfg.WORKERS, seed=seed)
+    trainloader = Loader(train_dataset, cfg.TRAIN.BATCH_SIZE_PER_GPU * int(cfg.TRAIN.ACCUM_STEPS),
+                         shuffle=cfg.TRAIN.SHUFFLE, drop_last=True, num_workers=cfg.WORKERS,
+                         seed=seed, **shard_kw)
     test_dataset = build_dataset(
         cfg.DATASET.DATASET, list_path=cfg.DATASET.TEST_SET, multi_scale=False, flip=False,
         base_size=cfg.TEST.BASE_SIZE, crop_size=(cfg.TEST.IMAGE_SIZE[1], cfg.TEST.IMAGE_SIZE[0]),
         **common_kw)
     testloader = Loader(test_dataset, 1, shuffle=False, drop_last=False,
-                        num_workers=cfg.WORKERS)
+                        num_workers=cfg.WORKERS, **shard_kw)
     return train_dataset, trainloader, testloader
 
 
-def _reject_unported(args, cfg) -> None:
-    if args.multihost:
-        raise NotImplementedError("--multihost is not ported yet (ROADMAP.md Queue 1 item 5)")
+def _check_request(args, cfg) -> int:
+    """Refuses what cannot run as asked; returns TRAIN.ACCUM_STEPS."""
     if args.spatial:
         raise NotImplementedError("--spatial is not ported yet (ROADMAP.md Queue 1 item 6)")
-    if cfg.DEVICES not in (-1, 0, 1):
-        raise NotImplementedError(
-            f"DEVICES {cfg.DEVICES}: data-parallel training is not ported yet (ROADMAP.md "
-            "Queue 1 item 5); the port trains on one device")
     accum = int(cfg.TRAIN.ACCUM_STEPS)
     if accum < 1:
         raise RuntimeError(f"TRAIN.ACCUM_STEPS must be >= 1, got {accum}")
-    if accum > 1:
-        raise NotImplementedError(
-            f"TRAIN.ACCUM_STEPS {accum}: gradient accumulation is not ported yet (ROADMAP.md "
-            "Queue 1 item 5)")
+    if accum > 1 and cfg.XLA.SYNC_BN:
+        raise RuntimeError(
+            "TRAIN.ACCUM_STEPS > 1 does not compose with XLA.SYNC_BN: microbatches run "
+            "sequentially, so BN stats cannot sync across them; use per-shard BN (default) or "
+            "more physical devices")
     if cfg.TRAIN.OPTIMIZER != "sgd":
         raise ValueError("Only Support SGD optimizer")
+    return accum
+
+
+def _join(args):
+    """(this process's device, whether it joined a process group): with
+    --multihost the group of torchrun's environment, on cuda:LOCAL_RANK
+    unless --device names another."""
+    dev = resolve_device(args.device)
+    if not args.multihost:
+        return dev, False
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    init_process_group(dev)
+    return dev, True
+
+
+def _mesh(cfg, dev, multihost: bool):
+    """The data mesh, one device per process: DEVICES -1 or 0 (every
+    process) or the process count. Anything else raises, naming torchrun,
+    and so does DEVICES -1 or 0 in one process on a machine with several
+    cards, which would train on one of them."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    launch = ("start one process per card with torchrun --nproc-per-node N -m "
+              "pidnet_tpu_torch.tools.train --multihost ...")
+    if cfg.DEVICES not in (-1, 0, world):
+        raise RuntimeError(f"DEVICES {cfg.DEVICES} with {world} process(es): {launch}, or set "
+                           "DEVICES -1")
+    if (not multihost and cfg.DEVICES in (-1, 0) and dev.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise RuntimeError(f"DEVICES {cfg.DEVICES} asks for all {torch.cuda.device_count()} "
+                           f"cards, one process trains on one: {launch}, or set DEVICES 1")
+    return make_mesh(cfg.DEVICES, dev)
 
 
 class _FirstEpochProfile:
@@ -148,35 +195,51 @@ def main(argv=None):
 
 
 def _train(args, should_stop) -> None:
-    dev = resolve_device(args.device)
     cfg = load_config(args.cfg, args.opts)
-    _reject_unported(args, cfg)
+    accum = _check_request(args, cfg)
+    dev, joined = _join(args)
+    try:
+        _train_on(args, cfg, accum, _mesh(cfg, dev, args.multihost), should_stop)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train_on(args, cfg, accum: int, mesh, should_stop) -> None:
+    dev, primary = mesh.device, mesh.rank == 0
     seed = args.seed if args.seed is not None else int(cfg.SEED)
 
-    logger, final_output_dir, tb_log_dir = create_logger(cfg, args.cfg, "train")
+    logger, final_output_dir, tb_log_dir = create_logger(cfg, args.cfg, "train", rank=mesh.rank)
     logger.info("%s", cfg)
     np.random.seed(seed)
     torch.manual_seed(seed)
-    writer_dict = {"writer": TBWriter(tb_log_dir), "train_global_steps": 0,
+    writer_dict = {"writer": TBWriter(tb_log_dir) if primary else None, "train_global_steps": 0,
                    "valid_global_steps": 0}
-    logger.info("training on %s", dev)
-    if cfg.XLA.SYNC_BN:
-        logger.info("XLA.SYNC_BN on one device: the batch statistics are the device's own")
+    logger.info("training on %s: data mesh over %d device(s), backend %s", dev, mesh.size,
+                mesh.backend)
+    if args.multihost and mesh.size == 1:
+        logger.info("--multihost with a single process; continuing single-host")
 
     spec = common.build_spec(cfg, augment=True)
     sd = common.maybe_load_pretrained(cfg, common.init_model(cfg, spec, seed=seed))
     ts = TrainState.create(M.build(spec, sd, device=dev, train=True))
-    train_dataset, trainloader, testloader = build_data(cfg, seed)
+    train_dataset, trainloader, testloader = build_data(cfg, seed, mesh.size, mesh.rank)
     loss_fn = FullLoss(
         num_outputs=cfg.MODEL.NUM_OUTPUTS, align_corners=cfg.MODEL.ALIGN_CORNERS,
         ignore_label=cfg.TRAIN.IGNORE_LABEL, class_weights=train_dataset.class_weights,
         use_ohem=cfg.LOSS.USE_OHEM, ohem_thres=cfg.LOSS.OHEMTHRES, ohem_kept=cfg.LOSS.OHEMKEEP,
         balance_weights=cfg.LOSS.BALANCE_WEIGHTS, sb_weights=cfg.LOSS.SB_WEIGHTS)
     train_step = make_train_step(
-        ts, loss_fn, momentum=cfg.TRAIN.MOMENTUM, weight_decay=cfg.TRAIN.WD,
-        nesterov=cfg.TRAIN.NESTEROV,
-        compute_dtype=torch.bfloat16 if cfg.XLA.BF16_TRAIN else None)
-    eval_step = make_eval_step(ts.model, loss_fn, num_classes=cfg.DATASET.NUM_CLASSES,
+        ts, loss_fn, mesh, momentum=cfg.TRAIN.MOMENTUM, weight_decay=cfg.TRAIN.WD,
+        nesterov=cfg.TRAIN.NESTEROV, compute_dtype=torch.bfloat16 if cfg.XLA.BF16_TRAIN else None,
+        sync_bn=bool(cfg.XLA.SYNC_BN), accum_steps=accum)
+    place_batch = None
+    if accum > 1:
+        batch = cfg.TRAIN.BATCH_SIZE_PER_GPU * mesh.size * accum
+        logger.info("gradient accumulation: %d microbatches of %d = global batch %d", accum,
+                    batch // accum, batch)
+        place_batch = lambda *arrays: shard_microbatches(mesh, accum, *arrays)  # noqa: E731
+    eval_step = make_eval_step(ts.model, loss_fn, mesh, num_classes=cfg.DATASET.NUM_CLASSES,
                                compute_dtype=torch.bfloat16 if cfg.XLA.BF16_EVAL else None)
 
     epoch_iters = len(trainloader)
@@ -196,14 +259,14 @@ def _train(args, should_stop) -> None:
     num_iters = cfg.TRAIN.END_EPOCH * epoch_iters
     # CamVid trains 120 epochs whatever END_EPOCH says (reference tools/train.py:172)
     real_end = 120 + 1 if "camvid" in cfg.DATASET.TRAIN_SET else cfg.TRAIN.END_EPOCH
-    profile = _FirstEpochProfile(cfg.XLA.PROFILE_DIR, dev)
+    profile = _FirstEpochProfile(cfg.XLA.PROFILE_DIR if primary else "", dev)
     valid_loss, mean_iou, iou_array = float("nan"), 0.0, None
     try:
         for epoch in range(last_epoch, real_end):
             ts, done_iters = engine.train_one_epoch(
                 cfg, epoch, epoch_iters, num_iters, cfg.TRAIN.LR, trainloader, train_step, ts,
-                writer_dict, should_stop=should_stop,
-                start_iter=resume_iter if epoch == last_epoch else 0)
+                writer_dict, place_batch=place_batch, should_stop=should_stop,
+                start_iter=resume_iter if epoch == last_epoch else 0, mesh=mesh)
             if should_stop():
                 profile.stop()
                 # iteration-exact resume: train_one_epoch(start_iter=...) replays
@@ -213,40 +276,49 @@ def _train(args, should_stop) -> None:
                                      else (epoch, done_iters))
                 logger.info("=> preemption checkpoint (epoch %d interrupted at iter %d) to %s",
                             ck_epoch, ck_iter, final_output_dir)
-                ckpt.save_train_checkpoint(final_output_dir, ck_epoch, best_miou, ts, it=ck_iter)
+                if primary:
+                    ckpt.save_train_checkpoint(final_output_dir, ck_epoch, best_miou, ts,
+                                               it=ck_iter)
                 logger.info("exiting on SIGTERM; resume with TRAIN.RESUME true")
                 return
 
             if flag_rm or (epoch % 5 == 0 and epoch < real_end - 100) or epoch >= real_end - 100:
                 valid_loss, mean_iou, iou_array = engine.validate(
                     cfg, testloader, eval_step, writer_dict, num_outputs=cfg.MODEL.NUM_OUTPUTS,
-                    should_stop=should_stop)
+                    should_stop=should_stop, mesh=mesh)
                 if should_stop():
                     profile.stop()
                     # the epoch's training is complete: resume at the next one;
                     # a partial sweep makes no best-model decision
                     logger.info("=> preemption checkpoint (validation of epoch %d interrupted) "
                                 "to %s", epoch, final_output_dir)
-                    ckpt.save_train_checkpoint(final_output_dir, epoch + 1, best_miou, ts)
+                    if primary:
+                        ckpt.save_train_checkpoint(final_output_dir, epoch + 1, best_miou, ts)
                     logger.info("exiting on SIGTERM; resume with TRAIN.RESUME true")
                     return
             flag_rm = False
             profile.stop()
 
+            # the replicas hold the same weights: rank 0 writes them
             logger.info("=> saving checkpoint to %s", final_output_dir)
-            ckpt.save_train_checkpoint(final_output_dir, epoch + 1, best_miou, ts)
+            if primary:
+                ckpt.save_train_checkpoint(final_output_dir, epoch + 1, best_miou, ts)
             if mean_iou > best_miou:
                 best_miou = mean_iou
-                ckpt.save_model(os.path.join(final_output_dir, "best.pt"), ts.params(),
-                                ts.state())
+                if primary:
+                    ckpt.save_model(os.path.join(final_output_dir, "best.pt"), ts.params(),
+                                    ts.state())
             logger.info("Loss: %.3f, MeanIU: %.4f, Best_mIoU: %.4f", valid_loss, mean_iou,
                         best_miou)
             if iou_array is not None:
                 logger.info("%s", iou_array)
 
-        ckpt.save_model(os.path.join(final_output_dir, "final_state.pt"), ts.params(), ts.state())
+        if primary:
+            ckpt.save_model(os.path.join(final_output_dir, "final_state.pt"), ts.params(),
+                            ts.state())
     finally:
-        writer_dict["writer"].close()
+        if primary:
+            writer_dict["writer"].close()
     logger.info("Hours: %d", int((timeit.default_timer() - start) / 3600))
     logger.info("Done")
 

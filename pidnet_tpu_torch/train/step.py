@@ -1,13 +1,28 @@
-"""The one-device training and evaluation steps (counterpart of
-pidnet_tpu/train/step.py without its data parallelism, `accum_steps`,
-`sync_bn` or batch padding).
+"""The training and evaluation steps (counterpart of
+pidnet_tpu/train/step.py), on one device or over a data mesh
+(parallel/mesh.py), with the JAX package's DataParallel semantics:
+
+- each rank runs its own forward with per-replica BatchNorm statistics
+  unless `sync_bn`, which takes the mesh's global batch statistics, and
+  its own FullLoss with its own OHEM pool;
+- the gradients, the metrics and the new BN running statistics are
+  averaged across the ranks in one flat all-reduce (the JAX step's
+  `loss / n_shards` and implicit psum, and its two pmeans; the BN update
+  is the mean over replicas, not DataParallel's replica 0);
+- `accum_steps = A` runs A microbatches one after another as virtual
+  shards, each from the step's initial BN state, and averages them as the
+  mesh does, so one device takes the global batch of A devices.
 
 The update is the JAX package's `_sgd`, torch.optim.SGD's semantics as the
 reference configures it (tools/train.py:139-148): weight decay folded into
 the gradient, a momentum buffer, optional Nesterov. Unlike the JAX step,
 which returns a new TrainState, this one updates the model's parameters,
 its BN buffers and the momentum buffers in place, which saves a copy of
-each.
+each. It wraps the model in no DistributedDataParallel: DDP's reducer runs
+from `.backward()` hooks, which `torch.autograd.grad` never fires, and it
+broadcasts replica 0's buffers where the JAX step averages them. The JAX
+step's batch padding to a multiple of 8 (`pad_batch`), a TPU sublane fill,
+is left out by design.
 """
 
 from __future__ import annotations
@@ -18,6 +33,7 @@ import torch
 from torch import nn
 
 from pidnet_tpu_torch.metrics import confusion_matrix
+from pidnet_tpu_torch.models.pidnet import sync_batch_norm
 from pidnet_tpu_torch.ops.resize import resize_bilinear
 from pidnet_tpu_torch.ops.upsample_argmax import upsample_argmax
 
@@ -56,54 +72,108 @@ def _sgd(params: list, grads: list, bufs: list, lr: float, momentum: float,
     torch._foreach_add_(params, step, alpha=-lr)
 
 
-def make_train_step(ts: TrainState, loss_fn, *, momentum: float = 0.9,
+def make_train_step(ts: TrainState, loss_fn, mesh=None, *, momentum: float = 0.9,
                     weight_decay: float = 0.0005, nesterov: bool = False,
-                    compute_dtype: torch.dtype | None = None):
+                    compute_dtype: torch.dtype | None = None, sync_bn: bool = False,
+                    accum_steps: int = 1):
     """`step(images, labels, edges, lr) -> metrics` on `ts`, in place.
 
     images NHWC float, labels (N,H,W) int, edges (N,H,W) float, all on the
-    model's device. With `compute_dtype` the images are cast to it, so every
-    conv runs in it on fp32 weights; the loss's reductions stay fp32.
-    `metrics` holds `loss_fn`'s 0-dim tensors, detached and not synced."""
+    model's device: this rank's share of the global batch
+    (`parallel.shard_batch`), or with `accum_steps = A > 1` its `(A, G,
+    ...)` microbatch stacks (`parallel.shard_microbatches`). With
+    `compute_dtype` the images are cast to it, so every conv runs in it on
+    fp32 weights; the loss's reductions stay fp32. `metrics` holds
+    `loss_fn`'s 0-dim tensors, detached and not synced: over a `mesh`
+    (`parallel.make_mesh`) their mean across the ranks, over microbatches
+    their mean.
+
+    `sync_bn` takes BN statistics over the mesh's global batch (the same
+    function as per-replica BN on one device); it does not compose with
+    `accum_steps > 1`, whose microbatches run one after another."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if accum_steps > 1 and sync_bn:
+        raise ValueError(
+            "accum_steps > 1 does not compose with sync_bn: microbatches run sequentially and "
+            "their BN statistics cannot be pmean'd together; use per-shard BN or more "
+            "physical devices")
     names = [k for k, _ in ts.model.named_parameters()]
     params = [p for _, p in ts.model.named_parameters()]
     bufs = [ts.momentum[k] for k in names]
+    stats = list(ts.state().values())
+    sync = mesh if sync_bn else None
+
+    def grads_of(images, labels, edges):
+        x = images if compute_dtype is None else images.to(compute_dtype)
+        with sync_batch_norm(ts.model, sync):
+            loss, metrics = loss_fn(ts.model(x), labels, edges)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def accumulated(images, labels, edges):
+        """The mean gradients, metrics and new BN statistics of the A
+        microbatches, each run from the step's initial BN state."""
+        start = [s.clone() for s in stats]
+        g_sum = s_sum = m_sum = None
+        for a in range(accum_steps):
+            if a:
+                torch._foreach_copy_(stats, start)
+            grads, metrics = grads_of(images[a], labels[a], edges[a])
+            if g_sum is None:
+                g_sum, s_sum, m_sum = grads, [s.clone() for s in stats], metrics
+            else:
+                torch._foreach_add_(g_sum, grads)
+                torch._foreach_add_(s_sum, stats)
+                m_sum = {k: m_sum[k] + v for k, v in metrics.items()}
+        torch._foreach_div_(g_sum, float(accum_steps))
+        torch._foreach_div_(s_sum, float(accum_steps))
+        torch._foreach_copy_(stats, s_sum)
+        return g_sum, {k: v / accum_steps for k, v in m_sum.items()}
 
     def step(images, labels, edges, lr: float) -> dict:
         ts.model.train()
-        x = images if compute_dtype is None else images.to(compute_dtype)
-        loss, metrics = loss_fn(ts.model(x), labels, edges)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if accum_steps == 1:
+            grads, metrics = grads_of(images, labels, edges)
+        else:
+            grads, metrics = accumulated(images, labels, edges)
+        if mesh is not None and mesh.group is not None:
+            keys = list(metrics)
+            out = mesh.all_reduce_mean([*grads, *stats, *(metrics[k].float() for k in keys)])
+            grads = out[:len(grads)]
+            with torch.no_grad():
+                torch._foreach_copy_(stats, out[len(grads):len(grads) + len(stats)])
+            metrics = dict(zip(keys, out[len(grads) + len(stats):]))
         _sgd(params, grads, bufs, lr, momentum, weight_decay, nesterov)
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     return step
 
 
-def make_eval_step(model: nn.Module, loss_fn, *, num_classes: int,
+def make_eval_step(model: nn.Module, loss_fn, mesh=None, *, num_classes: int,
                    compute_dtype: torch.dtype | None = None):
     """`step(images, labels, edges, sample_mask) -> (metrics, cms)`: the
-    validation step of the JAX package's `make_eval_step` on one device.
+    validation step of the JAX package's `make_eval_step`, on one device or
+    on this rank's share of the batch over a `mesh`.
 
     `model` is an unfolded eval-mode model (`build(..., train=False)`): BN
     uses its running statistics, and with `compute_dtype` the images are
     cast to it so every conv runs in it on fp32 weights. The inputs (host
     arrays or tensors; images NHWC, labels (N,H,W), edges (N,H,W),
     sample_mask (N,) in {0,1}) go to the model's device. FullLoss masks the
-    padding samples; `metrics` holds its 0-dim tensors scaled by w /
-    max(w, 1), as the JAX step's weighted mean over shards gives on one
-    shard, and `metrics["weight"]` is w, the real-sample count. `cms` is
-    (num_segmentation_outputs, C, C) int64, one confusion matrix per head
-    but the boundary head, with the masked samples' labels set to ignore:
+    padding samples. `metrics` holds its 0-dim tensors weighted as the JAX
+    step's psums weight them: each rank's value x its real-sample count w,
+    summed over the mesh and divided by max(total w, 1); and
+    `metrics["weight"]` is the total w, the global real-sample count, so
+    that every rank reports the same average. `cms` is
+    (num_segmentation_outputs, C, C) int64, summed over the mesh, one
+    confusion matrix per head but the boundary head, with the masked
+    samples' labels set to ignore:
     through the fused upsample+argmax (ops/upsample_argmax.py, the CUDA
     kernel on the card) when `compute_dtype` is bf16, else through the fp32
     bilinear resize and argmax. It runs under `torch.inference_mode()`, so
-    no backward kernel runs.
-
-    Not ported: the mesh and its psums (data parallelism is a later slice)
-    and the batch padding to a multiple of 8 (`pad_batch`), a TPU sublane
-    fill that the port leaves out by design."""
+    no backward kernel runs."""
     dev = next(model.parameters()).device
     ignore = loss_fn.ignore_label
     align = loss_fn.align_corners
@@ -121,8 +191,13 @@ def make_eval_step(model: nn.Module, loss_fn, *, num_classes: int,
         outputs = model(x)
         _, metrics = loss_fn(outputs, labels, edges, sample_mask=mask)
         w = mask.sum()
-        metrics = {k: v * w / torch.clamp(w, min=1.0) for k, v in metrics.items()}
-        metrics["weight"] = w
+        keys = list(metrics)
+        sums = torch.stack([metrics[k].float() * w for k in keys] + [w])
+        if mesh is not None:
+            mesh.all_reduce_sum(sums)
+        total = sums[-1]
+        metrics = {k: sums[i] / torch.clamp(total, min=1.0) for i, k in enumerate(keys)}
+        metrics["weight"] = total
         labels = torch.where(mask.reshape(-1, 1, 1) > 0, labels, ignore)
         hw = (labels.shape[1], labels.shape[2])
         cms = []
@@ -132,6 +207,9 @@ def make_eval_step(model: nn.Module, loss_fn, *, num_classes: int,
             else:
                 seg = resize_bilinear(o, hw, align)
             cms.append(confusion_matrix(seg, labels, num_classes, ignore))
-        return metrics, torch.stack(cms)
+        cms = torch.stack(cms)
+        if mesh is not None:
+            mesh.all_reduce_sum(cms)
+        return metrics, cms
 
     return step

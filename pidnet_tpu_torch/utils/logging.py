@@ -50,12 +50,14 @@ class TBWriter:
             self._w.close()
 
 
-def create_logger(cfg, cfg_path: str, phase: str = "train"):
+def create_logger(cfg, cfg_path: str, phase: str = "train", rank: int = 0):
     """A file and console logger on `pidnet_tpu_torch` and the run's
     directories, in the reference's layout (utils/utils.py:95-127):
     OUTPUT_DIR/<dataset>/<cfg_name>/<cfg_name>_<time>_<phase>.log and
     TensorBoard events under LOG_DIR/<dataset>/<model>/<cfg_name>_<time>.
-    Returns (logger, final_output_dir, tb_log_dir)."""
+    Returns (logger, final_output_dir, tb_log_dir). For a `rank` other
+    than 0 of a data-parallel run the logger writes no file and passes
+    only warnings and errors to the console: rank 0 logs the run."""
     root = Path(cfg.OUTPUT_DIR or "output")
     dataset = cfg.DATASET.DATASET
     cfg_name = os.path.basename(cfg_path).split(".")[0]
@@ -67,12 +69,15 @@ def create_logger(cfg, cfg_path: str, phase: str = "train"):
     log_file = final_output_dir / f"{cfg_name}_{time_str}_{phase}.log"
 
     logger = logging.getLogger("pidnet_tpu_torch")
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if rank == 0 else logging.WARNING)
     for h in list(logger.handlers):
         logger.removeHandler(h)
         h.close()
     fmt = logging.Formatter("%(asctime)-15s %(message)s")
-    for handler in (logging.FileHandler(str(log_file)), logging.StreamHandler()):
+    handlers = [logging.StreamHandler()]
+    if rank == 0:
+        handlers.insert(0, logging.FileHandler(str(log_file)))
+    for handler in handlers:
         handler.setFormatter(fmt)
         logger.addHandler(handler)
 

@@ -435,12 +435,12 @@ def test_train_resume_after_sigterm_is_bit_exact(tree, full_run, monkeypatch):
     assert ckpt.load(os.path.join(run, "checkpoint.pt"))["epoch"] == 2
 
 
-REJECTIONS = [  # (flags, KEY VALUE opts, the ROADMAP item named)
-    (["--multihost"], [], "item 5"),
-    (["--spatial", "2"], [], "item 6"),
-    ([], ["DEVICES", "2"], "item 5"),
-    ([], ["TRAIN.ACCUM_STEPS", "2"], "item 5"),
-    ([], ["MODEL.NAME", "ddrnet_23"], None),  # item 7, ported: no longer refused
+REJECTIONS = [  # (flags, KEY VALUE opts, what the run must do)
+    (["--multihost"], [], (RuntimeError, "torchrun")),  # no torchrun environment
+    (["--spatial", "2"], [], (NotImplementedError, "item 6")),
+    ([], ["DEVICES", "2"], (RuntimeError, "torchrun")),  # one process, two devices
+    ([], ["TRAIN.ACCUM_STEPS", "2"], "accum_steps=2"),  # item 5, ported
+    ([], ["MODEL.NAME", "ddrnet_23"], "DDRNet"),  # item 7, ported
 ]
 
 
@@ -448,21 +448,27 @@ class _Built(Exception):
     """Stops tools.train once the train step is being made."""
 
 
-@pytest.mark.parametrize("flags, opts, item", REJECTIONS,
+@pytest.mark.parametrize("flags, opts, want", REJECTIONS,
                          ids=["multihost", "spatial", "devices", "accum", "ddrnet"])
-def test_train_rejects_what_is_not_ported(tree, tmp_path, flags, opts, item, monkeypatch):
-    """Each unported option raises naming its ROADMAP item; the `ddrnet`
-    case, refused until the ablations were ported, now builds a DDRNet."""
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+def test_train_rejects_what_is_not_ported(tree, tmp_path, flags, opts, want, monkeypatch):
+    """What the port cannot run as asked raises: --spatial naming its
+    ROADMAP item, and a data-parallel request that one process cannot meet
+    (--multihost without torchrun's environment, DEVICES 2) naming
+    torchrun. The names predate the ports of items 5 and 7: the `accum`
+    case now builds an accumulating train step and the `ddrnet` case a
+    DDRNet."""
+    for key in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    if isinstance(want, tuple):
+        with pytest.raises(want[0], match=want[1]):
             train.main(_argv(tree, tmp_path, *opts, flags=flags))
         return
 
-    def stop(ts, *args, **kwargs):
-        raise _Built(type(ts.model).__name__)
+    def stop(ts, loss_fn, mesh, **kwargs):
+        raise _Built(f"{type(ts.model).__name__} accum_steps={kwargs['accum_steps']}")
 
     monkeypatch.setattr(train, "make_train_step", stop)
-    with pytest.raises(_Built, match="DDRNet"):
+    with pytest.raises(_Built, match=want):
         train.main(_argv(tree, tmp_path, *opts, flags=flags))
 
 
@@ -611,8 +617,16 @@ def test_eval_cli_default_model_file_and_tta(tree, tmp_path, full_run):
 
 
 @pytest.mark.parametrize("flags, opts, item", [(["--spatial", "2"], [], "item 6"),
-                                               ([], ["DEVICES", "4"], "item 5")],
+                                               ([], ["DEVICES", "4"], None)],
                          ids=["spatial", "devices"])
 def test_eval_rejects_what_is_not_ported(tree, tmp_path, flags, opts, item):
-    with pytest.raises(NotImplementedError, match=item):
-        eval_tool.main(_argv(tree, tmp_path, *opts, flags=flags))
+    """--spatial raises naming its ROADMAP item. The `devices` case, refused
+    until item 5 was ported, now evaluates over 4 CPU replicas and gives
+    the one-device run's scores."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            eval_tool.main(_argv(tree, tmp_path, *opts, flags=flags))
+        return
+    got = eval_tool.main(_argv(tree, tmp_path, "TEST.MODEL_FILE", WEIGHTS, *opts, flags=flags))
+    want = eval_tool.main(_argv(tree, tmp_path, "TEST.MODEL_FILE", WEIGHTS, flags=flags))
+    assert got[0] == want[0] and got[2:] == want[2:] and np.array_equal(got[1], want[1])
