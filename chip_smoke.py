@@ -159,7 +159,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    in-process under a world-1 torchrun environment (TRAIN.ACCUM_STEPS 2,
    BATCH_SIZE_PER_GPU 3, END_EPOCH 1) on the data phase's tree: an NCCL
    process group, one step, 2/4/4 launches a step and 1/2/0 a val frame,
-   and checkpoint.pt, best.pt and final_state.pt that load.
+   and checkpoint.pt, best.pt and final_state.pt that load;
+10. spatial: H-sharding (parallel/spatial.py) on the one card. (e) K1, K2
+   and K3 over windows of output rows (every window of 2 spatial ranks,
+   those that (a)-(c) launch, and of 4: both border shards and the
+   interior, both align_corners, bf16 and fp32; K1 at serving's and
+   training's shapes) against their windowed plain versions with the
+   kernel phases' gates, and the whole image's window equal to the
+   unwindowed launch.
+   Two gloo ranks sharing cuda:0 as a (1, 2) mesh (parallel/launch.spawn):
+   (a) the folded class-map closure (spatial_mesh=) on both frames at
+   1x1024x2048, bf16 against the slice phase's maps (>= 0.9995) and fp32
+   (TF32 off) against one device's fp32 maps (>= 0.9999), one K1 launch a
+   call a rank; (b) one fp32 train step (TF32 off) at 6x1024x1024 against
+   the one-device step on the same batch (loss rtol 1e-4, update cosine
+   >= 0.9999, BN state within 1e-5 + 1e-3|x|), 1/2/2 launches a rank, and
+   a bf16 step's cosine printed beside two one-device steps' own; (c) the
+   fp32 eval step on both frames: matrices with the one-device totals,
+   < 5e-3 of the pixels moved; every launch of the ranks' paths over a
+   window, as the wrappers' counts of windowed launches read it. Each
+   rank's ms a call and a step, peak GiB, and the share of
+   a call and of a step spent in collectives (timed between syncs). (d)
+   The (1, 1) mesh over a world-1 NCCL group: class maps bit-equal to the
+   slice phase's, the fp32 step's loss within rtol 1e-6 and update cosine
+   >= 0.99999 of the one-device step, the eval matrices equal.
 
 The line before the last is a JSON object with one entry per kernel, its
 launches counted over every path that ran it; the last line is
@@ -366,8 +389,9 @@ def phase_kernels(torch, ua) -> dict:
         x = x.to(torch.bfloat16)
         plan = ua.plan(n, h, w, c, *out_hw, True)
         out = torch.empty((n, *out_hw), dtype=torch.int32, device="cuda")
-        args = (x.data_ptr(), out.data_ptr(), n, h, w, c, *out_hw, 1, plan.band, plan.tile,
-                plan.lpp, plan.window, plan.threads, torch.cuda.current_stream().cuda_stream)
+        args = (x.data_ptr(), out.data_ptr(), n, h, w, c, *out_hw, h, 0, out_hw[0], 0, 1,
+                plan.band, plan.tile, plan.lpp, plan.window, plan.threads,
+                torch.cuda.current_stream().cuda_stream)
         raw = ua._kernel_fn("upsample_argmax_bf16")
         wrapper = lambda: ua.upsample_argmax(x, out_hw, True)  # noqa: E731
         ms = time_ms(wrapper)
@@ -1004,13 +1028,13 @@ class _NoWriter:
 def plain_versions(cf, ua, criterion):
     """FullLoss through the plain versions of K1-K3 on CUDA tensors, for
     the comparison only: the wrappers never fall back on their own."""
-    saved = (cf.ce_front_fwd, cf.ce_front_bwd, criterion.upsample_argmax)
+    saved = (cf.ce_front_fwd, cf.ce_front_bwd, criterion.upsample_argmax_rows)
     cf.ce_front_fwd, cf.ce_front_bwd = cf.ce_front_fwd_plain, cf.ce_front_bwd_plain
-    criterion.upsample_argmax = ua.upsample_argmax_plain
+    criterion.upsample_argmax_rows = ua.upsample_argmax_plain
     try:
         yield
     finally:
-        cf.ce_front_fwd, cf.ce_front_bwd, criterion.upsample_argmax = saved
+        cf.ce_front_fwd, cf.ce_front_bwd, criterion.upsample_argmax_rows = saved
 
 
 def phase_train(torch, card: str) -> tuple:
@@ -1976,14 +2000,26 @@ def recipe_loss():
 
 
 def kernel_counts(reset: bool = False) -> dict:
-    """K1-K3's launch counts, set to 0 first with `reset`."""
+    """K1-K3's launch counts, set to 0 first with `reset` (their counts of
+    windowed launches too)."""
     from pidnet_tpu_torch.ops import ce_front as cf
     from pidnet_tpu_torch.ops import upsample_argmax as ua
 
     if reset:
         ua.launches = cf.fwd_launches = cf.bwd_launches = 0
+        ua.window_launches = cf.fwd_window_launches = cf.bwd_window_launches = 0
     return {"upsample_argmax": ua.launches, "ce_front_fwd": cf.fwd_launches,
             "ce_front_bwd": cf.bwd_launches}
+
+
+def window_counts() -> dict:
+    """K1-K3's counts of launches over a window other than the whole image
+    (H-sharding), set to 0 with `kernel_counts(reset=True)`."""
+    from pidnet_tpu_torch.ops import ce_front as cf
+    from pidnet_tpu_torch.ops import upsample_argmax as ua
+
+    return {"upsample_argmax": ua.window_launches, "ce_front_fwd": cf.fwd_window_launches,
+            "ce_front_bwd": cf.bwd_window_launches}
 
 
 def per_step(k1: int, k2: int, k3: int, steps: int = 1) -> dict:
@@ -2352,6 +2388,475 @@ def phase_parallel(torch, card: str, tree: str, sliced: dict) -> dict:
     return counts
 
 
+# the spatial phase: the windows of the kernel check, the ranks, the crop
+SPATIAL_WORLD = 2
+SPATIAL_TRAIN = (6, 1024)  # a batch of 6 crops of 1024x1024, the reference's crop
+SPATIAL_TIMED = 3
+# (logits, output): K1's main shapes (serving's, and training's accuracy)
+# and K2/K3's, each cut into the windows of the spatial phase's
+# SPATIAL_WORLD ranks (the windows its paths launch) and of 4 (both border
+# shards and two interior ones)
+WINDOW_CASES = [(KERNEL_CASES[0], "upsample_argmax"), (CE_MAIN, "upsample_argmax"),
+                (CE_MAIN, "ce_front")]
+WINDOW_RANKS = (SPATIAL_WORLD, 4)
+
+
+class _Row:
+    """Rank s of S spatial ranks, as parallel/spatial.halo_for_resize reads it."""
+
+    def __init__(self, ranks: int, s: int):
+        self.n_spatial, self.spatial_index = ranks, s
+
+
+def window_slice(torch, x, out_rows: int, align: bool, ranks: int, s: int):
+    """Rank s's halo'd rows of NHWC `x` for its window of `out_rows` output
+    rows (parallel/spatial.halo_rows's margin: zero rows beyond the image),
+    the window (ops/resize.Rows), and its output rows."""
+    from pidnet_tpu_torch.parallel import spatial as SP
+
+    h = x.shape[1]
+    top, bottom, rows = SP.halo_for_resize(h // ranks, out_rows // ranks, align, _Row(ranks, s),
+                                           margin=1)
+    padded = torch.nn.functional.pad(x, (0, 0, 0, 0, h, h))
+    local = padded[:, h + rows.src_start:h + rows.src_start + h // ranks + top + bottom]
+    return local.contiguous(), rows, slice(rows.out_start, rows.out_start + out_rows // ranks)
+
+
+def phase_windows(torch) -> None:
+    """(e) K1, K2 and K3 over windows of output rows against their windowed
+    plain versions, at the main shapes, every window of each count of ranks
+    in WINDOW_RANKS (both border shards and the interior ones, the windows
+    of the spatial phase's paths among them), both align_corners, bf16 and
+    fp32, with K1's and K2's gates of the kernel phases and K3's against
+    autograd of the windowed plain forward; two launches bit-identical; the
+    whole image's window gives the unwindowed launch bit for bit."""
+    from pidnet_tpu_torch.ops import ce_front as cf
+    from pidnet_tpu_torch.ops import upsample_argmax as ua
+    from pidnet_tpu_torch.ops.resize import Rows
+
+    rng = np.random.default_rng(13)
+    worst = {"k1_agree": 1.0, "k2_err": 0.0, "k3_cos": 1.0, "k3_err_of_tol": 0.0}
+    for (shape, out_hw), kind in WINDOW_CASES:
+        base, labels, cw, g = ce_inputs(torch, rng, shape, out_hw)
+        for dtype in (torch.bfloat16, torch.float32):
+            xw = base.to(dtype)
+            for align in (True, False):
+                whole = Rows.whole(shape[1], out_hw[0])
+                if kind == "upsample_argmax":
+                    same = torch.equal(ua.upsample_argmax_rows(xw, out_hw, align, whole),
+                                       ua.upsample_argmax(xw, out_hw, align))
+                else:
+                    same = all(torch.equal(a, b) for a, b in zip(
+                        cf.ce_front_fwd(xw, labels, cw, 255, out_hw, align, whole),
+                        cf.ce_front_fwd(xw, labels, cw, 255, out_hw, align)))
+                check(same, f"windowed {kind}: the whole image's window differs from the "
+                            "unwindowed launch")
+                for ranks, s in ((r, s) for r in WINDOW_RANKS for s in range(r)):
+                    x, rows, oy = window_slice(torch, xw, out_hw[0], align, ranks, s)
+                    hw = (out_hw[0] // ranks, out_hw[1])
+                    where = (f"{kind} {tuple(shape)}->{out_hw} {str(dtype)[6:]} "
+                             f"align_corners={align} window {s} of {ranks} {tuple(rows)}")
+                    if kind == "upsample_argmax":
+                        got = ua.upsample_argmax_rows(x, hw, align, rows)
+                        again = ua.upsample_argmax_rows(x, hw, align, rows)
+                        want = ua.upsample_argmax_plain(x, hw, align, rows)
+                        top2 = cf._z(x, hw, align, rows).topk(2, dim=-1).values
+                        same = got == want
+                        agree = same.float().mean().item()
+                        confident = int((~same & (top2[..., 0] - top2[..., 1] > 1e-3)).sum())
+                        worst["k1_agree"] = min(worst["k1_agree"], agree)
+                        check(agree >= 0.9999 and confident == 0 and torch.equal(got, again),
+                              f"windowed {where}: agreement {agree}, confident mismatches "
+                              f"{confident}")
+                        continue
+                    lab, gw = labels[:, oy].contiguous(), g[:, oy].contiguous()
+                    nll, w = cf.ce_front_fwd(x, lab, cw, 255, hw, align, rows)
+                    nll2, _ = cf.ce_front_fwd(x, lab, cw, 255, hw, align, rows)
+                    dl = cf.ce_front_bwd(x, lab, 255, hw, align, gw, rows)
+                    dl2 = cf.ce_front_bwd(x, lab, 255, hw, align, gw, rows)
+                    xr = x.detach().clone().requires_grad_()
+                    nll_p, w_p = cf.ce_front_fwd_plain(xr, lab, cw, 255, hw, align, rows)
+                    (dl_p,) = torch.autograd.grad(nll_p, xr, gw)
+                    e_f = (nll - nll_p).abs().max().item()
+                    a, b = dl.float().flatten(), dl_p.float().flatten()
+                    cos = (a @ b / (a.norm() * b.norm())).item()
+                    tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-5) * b.abs().max().item()
+                    e_b = (a - b).abs().max().item()
+                    worst["k2_err"] = max(worst["k2_err"], e_f)
+                    worst["k3_cos"] = min(worst["k3_cos"], cos)
+                    worst["k3_err_of_tol"] = max(worst["k3_err_of_tol"], e_b / tol)
+                    bits = torch.equal(nll, nll2) and torch.equal(dl.float(), dl2.float())
+                    check(torch.equal(w, w_p) and e_f <= 1e-4 and cos > 0.99999 and e_b <= tol
+                          and bits, f"windowed {where}: w exact {torch.equal(w, w_p)}, nll err "
+                          f"{e_f:.3e}, dL cos {cos:.8f}, err {e_b:.3e} (<= {tol:.3e}), two "
+                          f"launches bit-identical {bits}")
+    print(f"spatial (e): windowed K1, K2, K3 at the main shapes, the windows of "
+          f"{' and of '.join(map(str, WINDOW_RANKS))} ranks each (both border shards and the "
+          f"interior), both align_corners, bf16 and fp32, against "
+          f"their windowed plain versions: K1 agreement >= {worst['k1_agree']:.6f} (>= 0.9999, "
+          f"no mismatch where the top-2 margin > 1e-3), K2 nll max err {worst['k2_err']:.3e} "
+          f"(<= 1e-4, w exact), K3 cos >= {worst['k3_cos']:.8f} (> 0.99999), max err "
+          f"{worst['k3_err_of_tol']:.3f} of its bound; two launches bit-identical; the whole "
+          f"image's window equals the unwindowed launch bit for bit")
+
+
+def collective_share(torch, fn) -> tuple[float, float]:
+    """(host ms of one call of `fn`, the ms of it spent in collectives):
+    every collective of the spatial path (parallel/spatial's all-gather and
+    torch.distributed.all_reduce) is timed from a sync before it to a sync
+    after it, for this call only."""
+    import torch.distributed as dist
+
+    from pidnet_tpu_torch.parallel import spatial as SP
+
+    spent = [0.0]
+    gather, reduce = SP._all_gather, dist.all_reduce
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+
+        return run
+
+    SP._all_gather, dist.all_reduce = timed(gather), timed(reduce)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, spent[0] * 1e3
+    finally:
+        SP._all_gather, dist.all_reduce = gather, reduce
+
+
+def host_window(torch, fn, n: int) -> list:
+    """Host ms of `n` calls of `fn`, each ending in a sync, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def spatial_rank(rank: int, frames, batch) -> dict:
+    """One of the spatial phase's two gloo ranks, both on cuda:0, a (1, 2)
+    mesh (run by parallel/launch.spawn): (a) the folded class-map closure
+    on both sample frames, bf16 and fp32, its ms a call and peak, and one
+    call with its collectives timed; (b) one fp32 train step (TF32 off) and
+    one bf16 step on `batch`, the bf16 steps' ms and peak, and one step
+    with its collectives timed; (c) the fp32 eval step of the train2k
+    weights on the frames. Launches are counted from 0 before each run and
+    read after it; the rank's sums of them, and of its windowed launches,
+    come back under "launches" and "windowed"."""
+    import torch
+
+    from pidnet_tpu_torch import engine
+    from pidnet_tpu_torch.convert.fold import fold_state_dict
+    from pidnet_tpu_torch.convert.weights import load_npz
+    from pidnet_tpu_torch.models import pidnet as M
+    from pidnet_tpu_torch.parallel import spatial as SP
+    from pidnet_tpu_torch.train.step import make_spatial_eval_step, make_spatial_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = SP.make_mesh_2d(1, SPATIAL_WORLD, dev)
+    out = {"mesh": (mesh.size, mesh.spatial_index, mesh.backend)}
+    images, labels, edges = frames
+    tally = {"launches": per_step(0, 0, 0), "windowed": per_step(0, 0, 0)}
+
+    def read() -> dict:
+        """The launches since the last reset, added to the rank's sums."""
+        got, windowed = kernel_counts(), window_counts()
+        for k in got:
+            tally["launches"][k] += got[k]
+            tally["windowed"][k] += windowed[k]
+        return got
+
+    # (a) serving
+    sd = load_npz(WEIGHTS)
+    plain = M.spec_for("pidnet_s", 19, augment=False)
+    folded = fold_state_dict(sd, plain)
+    cfg = engine.config()
+    serve = {dtype: engine.make_inference_classmap(cfg, plain, folded, folded=True,
+                                                   compute_dtype=dtype, spatial_mesh=mesh)
+             for dtype in (torch.bfloat16, None)}
+    maps, per_call = {}, []
+    for dtype, fn in serve.items():
+        maps[str(dtype)] = []
+        for i in range(images.shape[0]):
+            kernel_counts(reset=True)
+            maps[str(dtype)].append(fn(images[i:i + 1]).cpu().numpy()[0])
+            per_call.append(read()["upsample_argmax"])
+    x = torch.from_numpy(images[:1]).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_counts(reset=True)
+    times = host_window(torch, lambda: serve[torch.bfloat16](x), 10)
+    served = read()["upsample_argmax"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kernel_counts(reset=True)
+    call, spent = collective_share(torch, lambda: serve[torch.bfloat16](x))
+    out["serve"] = {"maps": maps, "per_call": per_call, "timed_launches": served, "ms": times,
+                    "peak_gib": peak, "timed_ms": call, "collective_ms": spent,
+                    "collective_launches": read()["upsample_argmax"]}
+
+    # (b) training: an fp32 step (the gates), then bf16
+    spec = M.spec_for("pidnet_s", 19, augment=True)
+    share = SP.shard_rows(mesh, *batch)
+    sgd = dict(momentum=0.9, weight_decay=5e-4)
+    steps = {}
+    for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        ts = seeded_state(torch, spec, dev)
+        p0 = flat_params(torch, ts)
+        step = make_spatial_train_step(ts, recipe_loss(), mesh, compute_dtype=dtype, **sgd)
+        kernel_counts(reset=True)
+        loss = float(step(*share, 0.01)["loss"])
+        update = flat_params(torch, ts) - p0
+        steps[name] = {"loss": loss, "launches": read(),
+                       "digest": hashlib.sha256(update.cpu().numpy().tobytes()).hexdigest(),
+                       "update": update.cpu().numpy() if rank == 0 else None,
+                       "state": {k: v.cpu().numpy() for k, v in ts.state().items()}}
+        if name == "bf16":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernel_counts(reset=True)
+            times = host_window(torch, lambda: float(step(*share, 0.01)["loss"]), SPATIAL_TIMED)
+            steps[name]["timed_launches"] = read()
+            steps[name].update(ms=times, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            kernel_counts(reset=True)
+            call, spent = collective_share(torch, lambda: float(step(*share, 0.01)["loss"]))
+            steps[name].update(timed_ms=call, collective_ms=spent, collective_launches=read())
+        del ts, step, p0, update
+    out["train"] = steps
+
+    # (c) the eval step, fp32
+    model = M.build(spec, sd, device=dev).to(memory_format=torch.channels_last)
+    evaluate = make_spatial_eval_step(model, recipe_loss(), mesh, num_classes=19)
+    kernel_counts(reset=True)
+    metrics, cms = evaluate(*SP.shard_rows(mesh, images, labels, edges,
+                                           np.ones(images.shape[0], np.float32)))
+    out["eval"] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                   "cms": cms.cpu().numpy(), "launches": read()}
+    out.update(tally)
+    return out
+
+
+def phase_spatial(torch, card: str, sliced: dict) -> dict:
+    """H-sharding (parallel/spatial.py) on the card: (e) the windowed
+    kernels; (a)-(c) two gloo ranks sharing cuda:0 as a (1, 2) mesh
+    against one device; (d) the (1, 1) mesh over a world-1 NCCL group
+    against one device. Returns the launch counts of K1-K3 on these paths."""
+    import torch.distributed as dist
+
+    from pidnet_tpu_torch import engine
+    from pidnet_tpu_torch.convert.fold import fold_state_dict
+    from pidnet_tpu_torch.convert.weights import load_npz
+    from pidnet_tpu_torch.data.synthetic import synthetic_epoch
+    from pidnet_tpu_torch.data.transforms import gen_edge_gt
+    from pidnet_tpu_torch.models import pidnet as M
+    from pidnet_tpu_torch.parallel import spatial as SP
+    from pidnet_tpu_torch.parallel.launch import free_port, spawn
+    from pidnet_tpu_torch.train.step import (make_eval_step, make_spatial_eval_step,
+                                             make_spatial_train_step, make_train_step)
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    counts = per_step(0, 0, 0)
+
+    def add(got: dict) -> None:
+        for k in counts:
+            counts[k] += got[k]
+
+    def cosine(a, b) -> float:
+        a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+        return float(a @ b / (a.norm() * b.norm()))
+
+    phase_windows(torch)
+
+    # the one-device references
+    sd = load_npz(WEIGHTS)
+    plain = M.spec_for("pidnet_s", 19, augment=False)
+    spec = M.spec_for("pidnet_s", 19, augment=True)
+    folded = fold_state_dict(sd, plain)
+    cfg = engine.config()
+    goldens = np.load(GOLDENS)
+    images = np.concatenate(sliced["frames"])
+    labels = np.stack([goldens[k].astype(np.int32) for k in goldens.files])
+    edges = np.stack([gen_edge_gt(goldens[k].astype(np.uint8)).astype(np.float32)
+                      for k in goldens.files])
+    frames = (images, labels, edges)
+    one32 = engine.make_inference_classmap(cfg, plain, folded, folded=True)
+    maps32 = [one32(images[i:i + 1]).cpu().numpy()[0] for i in range(images.shape[0])]
+    batch = synthetic_epoch(np.random.default_rng(SEED + 2), *SPATIAL_TRAIN)
+    sgd = dict(momentum=0.9, weight_decay=5e-4)
+    one = {}
+    for name, dtype, runs in (("fp32", None, 1), ("bf16", torch.bfloat16, 2)):
+        for r in range(runs):
+            ts = seeded_state(torch, spec, dev)
+            p0 = flat_params(torch, ts)
+            loss = float(make_train_step(ts, recipe_loss(), compute_dtype=dtype, **sgd)(
+                *(torch.from_numpy(a).to(dev) for a in batch), 0.01)["loss"])
+            one[name if r == 0 else "bf16 again"] = {
+                "loss": loss, "update": (flat_params(torch, ts) - p0).cpu(),
+                "state": {k: v.cpu().numpy() for k, v in ts.state().items()}}
+            del ts, p0
+    model = M.build(spec, sd, device=dev).to(memory_format=torch.channels_last)
+    m_one, cms_one = make_eval_step(model, recipe_loss(), num_classes=19)(
+        *frames, np.ones(images.shape[0], np.float32))
+    m_one = {k: float(v) for k, v in m_one.items()}
+    cms_one = cms_one.cpu().numpy()
+    torch.cuda.empty_cache()
+
+    # (a)-(c) two gloo ranks sharing cuda:0
+    t0 = time.perf_counter()
+    ranks = spawn(spatial_rank, SPATIAL_WORLD, frames, batch, backend="gloo", timeout=600)
+    print(f"spatial: {SPATIAL_WORLD} gloo ranks on cuda:0 as a (1, {SPATIAL_WORLD}) mesh in "
+          f"{time.perf_counter() - t0:.1f} s host, spawn and CUDA start included")
+    check([r["mesh"] for r in ranks] == [(SPATIAL_WORLD, s, "gloo") for s in range(SPATIAL_WORLD)],
+          f"spatial: the ranks' meshes {[r['mesh'] for r in ranks]}")
+    for s, r in enumerate(ranks):
+        sv = r["serve"]
+        agree = [float((m == w).mean()) for m, w in zip(sv["maps"]["torch.bfloat16"],
+                                                         sliced["maps"])]
+        agree32 = [float((m == w).mean()) for m, w in zip(sv["maps"]["None"], maps32)]
+        print(f"spatial (a) rank {s}: folded class maps of both frames at 1x1024x2048 over "
+              f"(1, {SPATIAL_WORLD}): bf16 vs the slice phase's one-device maps {agree} "
+              f"(>= 0.9995), fp32 (TF32 off) vs one device's fp32 {agree32} (>= 0.9999); K1 "
+              f"launches a call {sv['per_call']}; {len(sv['ms'])} bf16 calls median "
+              f"{statistics.median(sv['ms']):.2f} ms ({sv['timed_launches']} K1 launches), peak "
+              f"{sv['peak_gib']:.2f} GiB; a call with its collectives timed {sv['timed_ms']:.2f} "
+              f"ms, of it collectives {sv['collective_ms']:.2f} ms "
+              f"({sv['collective_ms'] / sv['timed_ms']:.1%}) [{card}]")
+        check(min(agree) >= 0.9995 and min(agree32) >= 0.9999,
+              f"spatial (a) rank {s}: sharded class maps disagree with one device's")
+        check(sv["per_call"] == [1] * len(sv["per_call"]) and sv["timed_launches"] == 11
+              and sv["collective_launches"] == 1, f"spatial (a) rank {s}: K1 launches "
+              f"{sv['per_call']}, {sv['timed_launches']}, {sv['collective_launches']}")
+    check(all(np.array_equal(a, b) for a, b in zip(ranks[0]["serve"]["maps"]["torch.bfloat16"],
+                                                    ranks[1]["serve"]["maps"]["torch.bfloat16"])),
+          "spatial (a): the two ranks return different maps")
+
+    r0, r1 = (r["train"]["fp32"] for r in ranks)
+    ref = one["fp32"]
+    cos = cosine(r0["update"], ref["update"])
+    worst = max(float(np.max(np.abs(r0["state"][k] - v) / (1e-5 + 1e-3 * np.abs(v))))
+                for k, v in ref["state"].items())
+    rtol = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+    print(f"spatial (b) fp32, TF32 off, {SPATIAL_TRAIN[0]}x{SPATIAL_TRAIN[1]}x{SPATIAL_TRAIN[1]}: "
+          f"ranks' losses {r0['loss']:.7f}, {r1['loss']:.7f}, updates equal "
+          f"{r0['digest'] == r1['digest']}; one device {ref['loss']:.7f} (rtol {rtol:.2e}, <= "
+          f"1e-4); update cosine {cos:.8f} (>= 0.9999); BN state worst |d| / (1e-5 + 1e-3|x|) "
+          f"{worst:.3f} (<= 1); launches a rank {r0['launches']}, {r1['launches']}")
+    check(r0["loss"] == r1["loss"] and r0["digest"] == r1["digest"] and rtol <= 1e-4
+          and cos >= 0.9999 and worst <= 1.0, "spatial (b): the sharded fp32 step differs")
+    b0, b1 = ranks[0]["train"]["bf16"], one["bf16"]
+    cos16 = cosine(b0["update"], b1["update"])
+    floor = cosine(one["bf16 again"]["update"], b1["update"])
+    print(f"spatial (b) bf16, the recipe: loss {b0['loss']:.7f} vs one device's "
+          f"{b1['loss']:.7f} (rtol {abs(b0['loss'] - b1['loss']) / abs(b1['loss']):.2e}); update "
+          f"cosine {cos16:.8f} beside two one-device steps' {floor:.8f} (the bf16 backward's "
+          f"noise floor; not gated)")
+    for s, r in enumerate(ranks):
+        for name in ("fp32", "bf16"):
+            st = r["train"][name]
+            check(st["launches"] == per_step(1, 2, 2), f"spatial (b) rank {s} {name}: launches "
+                  f"{st['launches']}, want 1/2/2")
+        st = r["train"]["bf16"]
+        check(st["timed_launches"] == per_step(1, 2, 2, SPATIAL_TIMED + 1)
+              and st["collective_launches"] == per_step(1, 2, 2),
+              f"spatial (b) rank {s}: timed launches {st['timed_launches']}, "
+              f"{st['collective_launches']}")
+        print(f"spatial (b) rank {s} PIDNet-S bf16 {SPATIAL_TRAIN[0]}x{SPATIAL_TRAIN[1]}x"
+              f"{SPATIAL_TRAIN[1]} over (1, {SPATIAL_WORLD}), two processes sharing one card: "
+              f"median {statistics.median(st['ms']):.2f} ms/step ({SPATIAL_TIMED} steps), peak "
+              f"{st['peak_gib']:.2f} GiB; a step with its collectives timed {st['timed_ms']:.2f} "
+              f"ms, of it collectives {st['collective_ms']:.2f} ms "
+              f"({st['collective_ms'] / st['timed_ms']:.1%}) [{card}]")
+
+    e0, e1 = (r["eval"] for r in ranks)
+    moved = float(np.abs(e0["cms"][-1] - cms_one[-1]).sum() / cms_one[-1].sum())
+    print(f"spatial (c) fp32 eval step over (1, {SPATIAL_WORLD}), both frames: matrices equal on "
+          f"both ranks {np.array_equal(e0['cms'], e1['cms'])}, totals {int(e0['cms'][-1].sum())} "
+          f"vs one device's {int(cms_one[-1].sum())}, cells moved {moved:.2e} of the total (< "
+          f"5e-3); loss {e0['metrics']['loss']:.6f} vs {m_one['loss']:.6f}, weight "
+          f"{e0['metrics']['weight']}; launches a rank {e0['launches']}")
+    check(np.array_equal(e0["cms"], e1["cms"])
+          and all(int(a.sum()) == int(b.sum()) for a, b in zip(e0["cms"], cms_one))
+          and all(float(np.abs(a - b).sum() / b.sum()) < 5e-3 for a, b in zip(e0["cms"], cms_one))
+          and e0["metrics"]["weight"] == m_one["weight"] == images.shape[0]
+          and e0["launches"] == per_step(1, 2, 0), "spatial (c): the sharded eval step differs")
+    # every launch that a rank's paths made, as its counters read them
+    for r in ranks:
+        add(r["launches"])
+    print(f"spatial: launches a rank {[r['launches'] for r in ranks]}, of them over a window "
+          f"other than the whole image {[r['windowed'] for r in ranks]}")
+    check(all(r["windowed"] == r["launches"] for r in ranks),
+          f"spatial: a launch on a rank's path was not windowed: "
+          f"{[(r['launches'], r['windowed']) for r in ranks]}")
+    del model
+    torch.cuda.empty_cache()
+
+    # (d) the (1, 1) mesh over a world-1 NCCL group
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = SP.make_mesh_2d(1, 1, dev)
+        serve = engine.make_inference_classmap(cfg, plain, folded, folded=True,
+                                               compute_dtype=torch.bfloat16, spatial_mesh=mesh)
+        kernel_counts(reset=True)
+        maps = [serve(images[i:i + 1]).cpu().numpy()[0] for i in range(images.shape[0])]
+        got = kernel_counts()
+        check(got == per_step(images.shape[0], 0, 0), f"spatial (d): serving launches {got}")
+        add(got)
+        same = [bool(np.array_equal(m, w)) for m, w in zip(maps, sliced["maps"])]
+        ts = seeded_state(torch, spec, dev)
+        p0 = flat_params(torch, ts)
+        kernel_counts(reset=True)
+        loss = float(make_spatial_train_step(ts, recipe_loss(), mesh, **sgd)(
+            *SP.shard_rows(mesh, *batch), 0.01)["loss"])
+        got = kernel_counts()
+        check(got == per_step(1, 2, 2), f"spatial (d): train launches {got}")
+        add(got)
+        cos = cosine((flat_params(torch, ts) - p0).cpu(), one["fp32"]["update"])
+        rtol = abs(loss - one["fp32"]["loss"]) / abs(one["fp32"]["loss"])
+        del ts, p0
+        model = M.build(spec, sd, device=dev).to(memory_format=torch.channels_last)
+        kernel_counts(reset=True)
+        m11, cms11 = make_spatial_eval_step(model, recipe_loss(), mesh, num_classes=19)(
+            *SP.shard_rows(mesh, *frames, np.ones(images.shape[0], np.float32)))
+        got = kernel_counts()
+        check(got == per_step(1, 2, 0), f"spatial (d): eval launches {got}")
+        add(got)
+        cms_equal = bool(np.array_equal(cms11.cpu().numpy(), cms_one))
+        e_rtol = abs(float(m11["loss"]) - m_one["loss"]) / abs(m_one["loss"])
+        print(f"spatial (d) the (1, 1) mesh over a world-1 NCCL group: bf16 class maps equal to "
+              f"the slice phase's bit for bit {same}; fp32 step loss {loss:.7f} vs one device's "
+              f"{one['fp32']['loss']:.7f} (rtol {rtol:.2e}, <= 1e-6), update cosine {cos:.8f} "
+              f"(>= 0.99999); fp32 eval step matrices equal {cms_equal}, loss rtol "
+              f"{e_rtol:.2e}")
+        check(same == [True] * len(same) and rtol <= 1e-6 and cos >= 0.99999 and cms_equal,
+              "spatial (d): the (1, 1) mesh differs from one device")
+        del model
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"spatial: the phase took {time.perf_counter() - t_phase:.1f} s [{card}; host time]")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2394,8 +2899,9 @@ def main() -> int:
         parallel = phase_parallel(torch, card, tree, sliced)
     finally:
         shutil.rmtree(tree)
+    spatial = phase_spatial(torch, card, sliced)
     paths = {"training": counts, "families": families, "data": loaded, "eval": evals,
-             "cli": clis, "parallel": parallel}
+             "cli": clis, "parallel": parallel, "spatial": spatial}
     k1["launches"] = served + exported + sum(c["upsample_argmax"] for c in paths.values())
     k2["launches"] = sum(c["ce_front_fwd"] for c in paths.values())
     k3["launches"] = sum(c["ce_front_bwd"] for c in paths.values())

@@ -10,6 +10,13 @@
 // last row or column i1 == i0, so both lambdas land on one source pixel.
 // The value is h0*(w0*v00 + w1*v01) + h1*(w0*v10 + w1*v11), in fp32 for
 // bf16 and fp32 inputs alike.
+//
+// Under H-sharding a kernel computes a window of output rows of a taller
+// image from a slice of its source rows (the shard's, with halo rows from
+// its neighbours): `Rows` takes each row's taps from the global sizes and
+// turns the source row into the slice's own. A window of the whole image
+// (offsets 0, global sizes the local ones) is the same arithmetic, bit for
+// bit.
 
 #pragma once
 
@@ -37,6 +44,27 @@ __device__ __forceinline__ void source_taps(int dst, float scale, int in, bool a
   *l1 = src - (float)i;
 }
 
+// The H taps of a window of output rows: `in` global source rows, of which
+// the local source's row 0 is global row `in0` (negative where zero rows
+// stand above the image), and `out` global output rows, of which the
+// window's row 0 is global row `out0`.
+struct Rows {
+  int in, in0, out, out0;
+  float scale;
+
+  __device__ __forceinline__ Rows(int in_, int in0_, int out_, int out0_, bool align_corners)
+      : in(in_), in0(in0_), out(out_), out0(out0_),
+        scale(source_scale(in_, out_, align_corners)) {}
+
+  // The taps of the window's row `y`: i0 as a local source row, the step
+  // to i1, lambda1.
+  __device__ __forceinline__ void taps(int y, bool align_corners, int* i0, int* step,
+                                       float* l1) const {
+    source_taps(out0 + y, scale, in, align_corners, i0, step, l1);
+    *i0 -= in0;
+  }
+};
+
 // The 2x2 taps of one output pixel of an NHWC (n,h,w,c) tensor: pointers to
 // the class vectors of its top-left and bottom-left source pixels, the
 // offset (0 or c) to their right neighbours, and the four lambdas.
@@ -48,9 +76,11 @@ struct Taps {
   float h0, h1, w0, w1;
   int y0, ystep, x0, xstep;
 
-  __device__ __forceinline__ Taps(const T* base, int b, int oy, int ox, int h, int w, int c,
-                                  float sh, float sw, bool align_corners) {
-    source_taps(oy, sh, h, align_corners, &y0, &ystep, &h1);
+  // `oy` is a row of the window `rows` of an image whose local source has
+  // h rows.
+  __device__ __forceinline__ Taps(const T* base, int b, int oy, int ox, const Rows& rows, int h,
+                                  int w, int c, float sw, bool align_corners) {
+    rows.taps(oy, align_corners, &y0, &ystep, &h1);
     source_taps(ox, sw, w, align_corners, &x0, &xstep, &w1);
     h0 = 1.f - h1;
     w0 = 1.f - w1;

@@ -17,6 +17,15 @@
 // block per image that every grid step revisits. Nothing persists between
 // blocks on Hopper, so:
 //
+// Windowed (H-sharding): both kernels take four row arguments (hg, r0g,
+// ohg, oy0): the labels, g and the maps are output rows [oy0, oy0 + oh) of
+// an image of ohg rows, and the logits (and dL) rows [r0g, r0g + h) of its
+// hg source rows, the shard's rows with their halo; every tap is the whole
+// image's (bilinear.cuh's Rows). ce_bwd then writes the gradient that this
+// window's pixels send to each local source row, the halo rows included;
+// the caller returns the halo rows' part to their owners. (h, 0, oh, 0) is
+// the whole image.
+//
 // ce_fwd: a column walk. A block owns a band of output rows [ya, yb) and a
 //   tile of output columns [xa, xb) of one image, so each output pixel has
 //   one owner and is written once. The plan (band, tile, lanes a pixel,
@@ -189,8 +198,8 @@ template <typename T, int CB>
 __global__ void __launch_bounds__(kBwdThreads, 2)
     ce_bwd_kernel(const T* __restrict__ logits, const int32_t* __restrict__ labels,
                   const float* __restrict__ g, T* __restrict__ dl, int h, int w, int c, int oh,
-                  int ow, int ignore, bool align_corners, int band, int tile, int xw, int lpp,
-                  int bands, int tiles) {
+                  int ow, int hg, int r0g, int ohg, int oy0, int ignore, bool align_corners,
+                  int band, int tile, int xw, int lpp, int bands, int tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   const BwdLayout lay(c, band, tile, xw, lpp, CB, sizeof(T));
   T* stage = reinterpret_cast<T*>(smem);
@@ -202,17 +211,22 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
   const int i0 = (blockIdx.x / tiles) % bands * band, i1 = min(i0 + band, h);
   const int j0 = blockIdx.x % tiles * tile, j1 = min(j0 + tile, w);
   const int jlo = max(j0 - 1, 0);  // the halo column, whose lambda1 lands on j0
-  const float sh = bilinear::source_scale(h, oh, align_corners);
+  const bilinear::Rows win(hg, r0g, ohg, oy0, align_corners);
   const float sw = bilinear::source_scale(w, ow, align_corners);
 
   // the output rows [ya, yb) and columns [xa, xa + nx) with a tap in the
-  // band and the tile, one search a lane
+  // band and the tile, one search a lane; rows are searched over the
+  // whole image's and kept to the window's
   __shared__ int reach[4];
   if (threadIdx.x < 4) {
     const bool rows = threadIdx.x < 2, first = threadIdx.x % 2 == 0;
-    reach[threadIdx.x] = first_reaching(rows ? (first ? i0 : i1) : (first ? j0 : j1), first,
-                                        rows ? sh : sw, rows ? h : w, rows ? oh : ow,
-                                        align_corners);
+    if (rows) {
+      const int y = first_reaching(win.in0 + (first ? i0 : i1), first, win.scale, hg, ohg,
+                                   align_corners);
+      reach[threadIdx.x] = min(max(y - oy0, 0), oh);
+    } else {
+      reach[threadIdx.x] = first_reaching(first ? j0 : j1, first, sw, w, ow, align_corners);
+    }
   }
   __syncthreads();
   const int ya = reach[0], yb = reach[1], xa = reach[2], nx = reach[3] - reach[2];
@@ -282,7 +296,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
     }
     int y0, ystep;
     float hl1;
-    bilinear::source_taps(y, sh, h, align_corners, &y0, &ystep, &hl1);
+    win.taps(y, align_corners, &y0, &ystep, &hl1);
     const float hl0 = 1.f - hl1;
     assert(y0 < i1 && (y0 >= i0 || (y0 == i0 - 1 && ystep == 1 && hl1 > 0.f)));  // in the band
     if (y0 != cur) {  // a new source row: flush the finished sums, lerp the new rows
@@ -404,9 +418,9 @@ template <typename T, int CB>
 __global__ void __launch_bounds__(kFwdThreads, CB <= 20 ? 3 : 2)
     ce_fwd_kernel(const T* __restrict__ logits, const int32_t* __restrict__ labels,
                   const float* __restrict__ cw, float* __restrict__ nll,
-                  float* __restrict__ wmap, int h, int w, int c, int oh, int ow, int ignore,
-                  bool align_corners, int band, int tile, int lpp, int window, int bands,
-                  int tiles) {
+                  float* __restrict__ wmap, int h, int w, int c, int oh, int ow, int hg, int r0g,
+                  int ohg, int oy0, int ignore, bool align_corners, int band, int tile, int lpp,
+                  int window, int bands, int tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   const FwdLayout lay(c, window, lpp, CB, sizeof(T));
   const int cs = lay.cs;
@@ -416,21 +430,21 @@ __global__ void __launch_bounds__(kFwdThreads, CB <= 20 ? 3 : 2)
   const int img = blockIdx.x / (tiles * bands);
   const int ya = (blockIdx.x / tiles) % bands * band, yb = min(ya + band, oh);
   const int xa = blockIdx.x % tiles * tile, xb = min(xa + tile, ow);
-  const float sh = bilinear::source_scale(h, oh, align_corners);
+  const bilinear::Rows win(hg, r0g, ohg, oy0, align_corners);
   const float sw = bilinear::source_scale(w, ow, align_corners);
 
-  // the staged source pixels, rows [r0, r0 + nr) and columns [q0, q0 + nq):
-  // the taps of the band's first and last rows and of the tile's first and
-  // last columns (the taps do not decrease along a row or a column)
+  // the staged source pixels, local rows [r0, r0 + nr) and columns [q0, q0 +
+  // nq): the taps of the band's first and last rows and of the tile's first
+  // and last columns (the taps do not decrease along a row or a column)
   int r0, q0, last, st;
   float l1;
-  bilinear::source_taps(ya, sh, h, align_corners, &r0, &st, &l1);
-  bilinear::source_taps(yb - 1, sh, h, align_corners, &last, &st, &l1);
+  win.taps(ya, align_corners, &r0, &st, &l1);
+  win.taps(yb - 1, align_corners, &last, &st, &l1);
   const int nr = last + st - r0 + 1;
   bilinear::source_taps(xa, sw, w, align_corners, &q0, &st, &l1);
   bilinear::source_taps(xb - 1, sw, w, align_corners, &last, &st, &l1);
   const int nq = last + st - q0 + 1;
-  assert(nr * nq <= window);  // forward_plan's bound
+  assert(nr * nq <= window && r0 >= 0 && r0 + nr <= h);  // forward_plan's bound
 
   const int px = threadIdx.x / lpp, lane = threadIdx.x % lpp, kb = lane * CB;
   const bool live = xa + px < xb;
@@ -497,7 +511,7 @@ __global__ void __launch_bounds__(kFwdThreads, CB <= 20 ? 3 : 2)
     if (live && y + 1 < yb) next_label = lab[(int64_t)(y + 1 - ya) * ow];  // ahead of its use
     int y0, ystep;
     float hl1;
-    bilinear::source_taps(y, sh, h, align_corners, &y0, &ystep, &hl1);
+    win.taps(y, align_corners, &y0, &ystep, &hl1);
     assert(y0 >= r0 && y0 + ystep < r0 + nr);  // in the window
     const T* row0 = col0 + (y0 - r0) * rs;
     const int dy = ystep * rs;
@@ -558,8 +572,9 @@ __global__ void __launch_bounds__(kFwdThreads, CB <= 20 ? 3 : 2)
 
 template <typename T, int CB>
 int launch_fwd_cb(const void* logits, const void* labels, const void* cw, void* nll, void* wmap,
-                  int n, int h, int w, int c, int oh, int ow, int ignore, int align_corners,
-                  int band, int tile, int lpp, int window, int threads, void* stream) {
+                  int n, int h, int w, int c, int oh, int ow, int hg, int r0g, int ohg, int oy0,
+                  int ignore, int align_corners, int band, int tile, int lpp, int window,
+                  int threads, void* stream) {
   const int bands = (oh + band - 1) / band, tiles = (ow + tile - 1) / tile;
   const int64_t blocks = (int64_t)n * bands * tiles;
   if (blocks > 2147483647LL || threads > kFwdThreads || threads % 32 != 0 || tile * lpp > threads)
@@ -572,14 +587,16 @@ int launch_fwd_cb(const void* logits, const void* labels, const void* cw, void* 
   }
   ce_fwd_kernel<T, CB><<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
       (const T*)logits, (const int32_t*)labels, (const float*)cw, (float*)nll, (float*)wmap, h, w,
-      c, oh, ow, ignore, align_corners != 0, band, tile, lpp, window, bands, tiles);
+      c, oh, ow, hg, r0g, ohg, oy0, ignore, align_corners != 0, band, tile, lpp, window, bands,
+      tiles);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int CB>
 int launch_bwd_cb(const void* logits, const void* labels, const void* g, void* dl, int n, int h,
-                  int w, int c, int oh, int ow, int ignore, int align_corners, int band, int tile,
-                  int xw, int lpp, int threads, void* stream) {
+                  int w, int c, int oh, int ow, int hg, int r0g, int ohg, int oy0, int ignore,
+                  int align_corners, int band, int tile, int xw, int lpp, int threads,
+                  void* stream) {
   const int bands = (h + band - 1) / band, tiles = (w + tile - 1) / tile;
   const int64_t blocks = (int64_t)n * bands * tiles;
   if (blocks > 2147483647LL || threads > kBwdThreads || threads % 32 != 0 || xw * lpp > threads)
@@ -591,16 +608,16 @@ int launch_bwd_cb(const void* logits, const void* labels, const void* g, void* d
     if (err != cudaSuccess) return (int)err;
   }
   ce_bwd_kernel<T, CB><<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)logits, (const int32_t*)labels, (const float*)g, (T*)dl, h, w, c, oh, ow, ignore,
-      align_corners != 0, band, tile, xw, lpp, bands, tiles);
+      (const T*)logits, (const int32_t*)labels, (const float*)g, (T*)dl, h, w, c, oh, ow, hg, r0g,
+      ohg, oy0, ignore, align_corners != 0, band, tile, xw, lpp, bands, tiles);
   return (int)cudaGetLastError();
 }
 
 // One instantiation for each slice width.
 template <typename T>
 int launch_bwd(const void* logits, const void* labels, const void* g, void* dl, int n, int h,
-               int w, int c, int oh, int ow, int ignore, int align_corners, int band, int tile,
-               int xw, int lpp, int threads, void* stream) {
+               int w, int c, int oh, int ow, int hg, int r0g, int ohg, int oy0, int ignore,
+               int align_corners, int band, int tile, int xw, int lpp, int threads, void* stream) {
   auto launch = &launch_bwd_cb<T, 32>;
   switch (walk::class_slice(c, lpp)) {
     case 4: launch = &launch_bwd_cb<T, 4>; break;
@@ -613,14 +630,15 @@ int launch_bwd(const void* logits, const void* labels, const void* g, void* dl, 
     case 32: break;
     default: return (int)cudaErrorInvalidValue;
   }
-  return launch(logits, labels, g, dl, n, h, w, c, oh, ow, ignore, align_corners, band, tile, xw,
-                lpp, threads, stream);
+  return launch(logits, labels, g, dl, n, h, w, c, oh, ow, hg, r0g, ohg, oy0, ignore,
+                align_corners, band, tile, xw, lpp, threads, stream);
 }
 
 template <typename T>
 int launch_fwd(const void* logits, const void* labels, const void* cw, void* nll, void* wmap,
-               int n, int h, int w, int c, int oh, int ow, int ignore, int align_corners, int band,
-               int tile, int lpp, int window, int threads, void* stream) {
+               int n, int h, int w, int c, int oh, int ow, int hg, int r0g, int ohg, int oy0,
+               int ignore, int align_corners, int band, int tile, int lpp, int window,
+               int threads, void* stream) {
   auto launch = &launch_fwd_cb<T, 32>;
   switch (walk::class_slice(c, lpp)) {
     case 4: launch = &launch_fwd_cb<T, 4>; break;
@@ -633,40 +651,45 @@ int launch_fwd(const void* logits, const void* labels, const void* cw, void* nll
     case 32: break;
     default: return (int)cudaErrorInvalidValue;
   }
-  return launch(logits, labels, cw, nll, wmap, n, h, w, c, oh, ow, ignore, align_corners, band,
-                tile, lpp, window, threads, stream);
+  return launch(logits, labels, cw, nll, wmap, n, h, w, c, oh, ow, hg, r0g, ohg, oy0, ignore,
+                align_corners, band, tile, lpp, window, threads, stream);
 }
 
 }  // namespace
 
+// (hg, r0g, ohg, oy0): the window of output rows (bilinear.cuh's Rows);
+// (h, 0, oh, 0) for the whole image.
 extern "C" int ce_fwd_bf16(const void* logits, const void* labels, const void* cw, void* nll,
-                           void* wmap, int n, int h, int w, int c, int oh, int ow, int ignore,
-                           int align_corners, int band, int tile, int lpp, int window,
-                           int threads, void* stream) {
-  return launch_fwd<__nv_bfloat16>(logits, labels, cw, nll, wmap, n, h, w, c, oh, ow, ignore,
-                                   align_corners, band, tile, lpp, window, threads, stream);
+                           void* wmap, int n, int h, int w, int c, int oh, int ow, int hg, int r0g,
+                           int ohg, int oy0, int ignore, int align_corners, int band, int tile,
+                           int lpp, int window, int threads, void* stream) {
+  return launch_fwd<__nv_bfloat16>(logits, labels, cw, nll, wmap, n, h, w, c, oh, ow, hg, r0g,
+                                   ohg, oy0, ignore, align_corners, band, tile, lpp, window,
+                                   threads, stream);
 }
 
 extern "C" int ce_fwd_f32(const void* logits, const void* labels, const void* cw, void* nll,
-                          void* wmap, int n, int h, int w, int c, int oh, int ow, int ignore,
-                          int align_corners, int band, int tile, int lpp, int window, int threads,
-                          void* stream) {
-  return launch_fwd<float>(logits, labels, cw, nll, wmap, n, h, w, c, oh, ow, ignore,
-                           align_corners, band, tile, lpp, window, threads, stream);
+                          void* wmap, int n, int h, int w, int c, int oh, int ow, int hg, int r0g,
+                          int ohg, int oy0, int ignore, int align_corners, int band, int tile,
+                          int lpp, int window, int threads, void* stream) {
+  return launch_fwd<float>(logits, labels, cw, nll, wmap, n, h, w, c, oh, ow, hg, r0g, ohg, oy0,
+                           ignore, align_corners, band, tile, lpp, window, threads, stream);
 }
 
 extern "C" int ce_bwd_bf16(const void* logits, const void* labels, const void* g, void* dl, int n,
-                           int h, int w, int c, int oh, int ow, int ignore, int align_corners,
-                           int band, int tile, int xw, int lpp, int threads, void* stream) {
-  return launch_bwd<__nv_bfloat16>(logits, labels, g, dl, n, h, w, c, oh, ow, ignore,
-                                   align_corners, band, tile, xw, lpp, threads, stream);
+                           int h, int w, int c, int oh, int ow, int hg, int r0g, int ohg, int oy0,
+                           int ignore, int align_corners, int band, int tile, int xw, int lpp,
+                           int threads, void* stream) {
+  return launch_bwd<__nv_bfloat16>(logits, labels, g, dl, n, h, w, c, oh, ow, hg, r0g, ohg, oy0,
+                                   ignore, align_corners, band, tile, xw, lpp, threads, stream);
 }
 
 extern "C" int ce_bwd_f32(const void* logits, const void* labels, const void* g, void* dl, int n,
-                          int h, int w, int c, int oh, int ow, int ignore, int align_corners,
-                          int band, int tile, int xw, int lpp, int threads, void* stream) {
-  return launch_bwd<float>(logits, labels, g, dl, n, h, w, c, oh, ow, ignore, align_corners,
-                           band, tile, xw, lpp, threads, stream);
+                          int h, int w, int c, int oh, int ow, int hg, int r0g, int ohg, int oy0,
+                          int ignore, int align_corners, int band, int tile, int xw, int lpp,
+                          int threads, void* stream) {
+  return launch_bwd<float>(logits, labels, g, dl, n, h, w, c, oh, ow, hg, r0g, ohg, oy0, ignore,
+                           align_corners, band, tile, xw, lpp, threads, stream);
 }
 
 // The shared-memory bytes of one ce_bwd block, for the plan's cross-check.

@@ -41,6 +41,10 @@
 //   3. One int32 store a pixel; neighbouring threads own neighbouring
 //      columns, so a warp's row store is one 128-byte line (with lpp > 1,
 //      lane 0 of each pixel stores).
+//   Windowed (H-sharding): the four row arguments (hg, r0g, ohg, oy0) make
+//   the kernel compute output rows [oy0, oy0 + oh) of an image of ohg rows
+//   from rows [r0g, r0g + h) of its hg source rows (bilinear.cuh's Rows),
+//   the taps of the whole image's rows; (h, 0, oh, 0) is the whole image.
 //   Invariants: one fixed order of fp32 operations, so two launches give
 //   bit-identical maps (chip_smoke.py checks it); at most 1024 classes (32
 //   lanes of 32). In a build without -DNDEBUG device asserts check that
@@ -80,17 +84,17 @@ __host__ __device__ inline size_t stage_bytes(int window, int lpp, int cb) {
 }
 
 // The source pixels under the taps of output rows [ya, yb) and columns
-// [xa, xb): rows [r0, r0 + nr), columns [q0, q0 + nq), from the taps of
-// the first and last row and column (the taps do not decrease along a row
-// or a column).
+// [xa, xb): local rows [r0, r0 + nr), columns [q0, q0 + nq), from the taps
+// of the first and last row and column (the taps do not decrease along a
+// row or a column).
 struct Window {
   int r0, nr, q0, nq;
-  __device__ __forceinline__ Window(int ya, int yb, int xa, int xb, int h, int w, float sh,
-                                    float sw, bool align_corners) {
+  __device__ __forceinline__ Window(int ya, int yb, int xa, int xb, const bilinear::Rows& rows,
+                                    int w, float sw, bool align_corners) {
     int last, st;
     float l1;
-    bilinear::source_taps(ya, sh, h, align_corners, &r0, &st, &l1);
-    bilinear::source_taps(yb - 1, sh, h, align_corners, &last, &st, &l1);
+    rows.taps(ya, align_corners, &r0, &st, &l1);
+    rows.taps(yb - 1, align_corners, &last, &st, &l1);
     nr = last + st - r0 + 1;
     bilinear::source_taps(xa, sw, w, align_corners, &q0, &st, &l1);
     bilinear::source_taps(xb - 1, sw, w, align_corners, &last, &st, &l1);
@@ -131,8 +135,9 @@ __device__ __forceinline__ void stage_quads(const T* __restrict__ src, float* st
 template <typename T, int CB>
 __global__ void __launch_bounds__(kThreads, CB <= 20 ? 4 : 2)
     upsample_argmax_kernel(const T* __restrict__ logits, int32_t* __restrict__ out, int h, int w,
-                           int c, int oh, int ow, bool align_corners, int band, int tile, int lpp,
-                           int window, int bands, int tiles) {
+                           int c, int oh, int ow, int hg, int r0g, int ohg, int oy0,
+                           bool align_corners, int band, int tile, int lpp, int window, int bands,
+                           int tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* stage = reinterpret_cast<float*>(smem);
   __shared__ int row_at[kMaxBand];    // a band row's staged row y0, as an offset into stage
@@ -143,18 +148,18 @@ __global__ void __launch_bounds__(kThreads, CB <= 20 ? 4 : 2)
   const int img = blockIdx.x / (tiles * bands);
   const int ya = (blockIdx.x / tiles) % bands * band, yb = min(ya + band, oh);
   const int xa = blockIdx.x % tiles * tile, xb = min(xa + tile, ow);
-  const float sh = bilinear::source_scale(h, oh, align_corners);
+  const bilinear::Rows rows(hg, r0g, ohg, oy0, align_corners);
   const float sw = bilinear::source_scale(w, ow, align_corners);
 
-  const Window win(ya, yb, xa, xb, h, w, sh, sw, align_corners);
-  assert(win.nr * win.nq <= window);  // the plan's bound
+  const Window win(ya, yb, xa, xb, rows, w, sw, align_corners);
+  assert(win.nr * win.nq <= window && win.r0 >= 0 && win.r0 + win.nr <= h);  // the plan's bound
   const int rs = win.nq * cs;         // to the next staged row
   stage_quads<T, CB>(logits + (((int64_t)img * h + win.r0) * w + win.q0) * c, stage, win, w, c,
                      lpp);
   for (int r = threadIdx.x; r < yb - ya; r += blockDim.x) {  // the band rows' taps, once
     int y0, ystep;
     float hl1;
-    bilinear::source_taps(ya + r, sh, h, align_corners, &y0, &ystep, &hl1);
+    rows.taps(ya + r, align_corners, &y0, &ystep, &hl1);
     assert(y0 >= win.r0 && y0 + ystep < win.r0 + win.nr);  // in the window
     row_at[r] = (y0 - win.r0) * rs;
     row_step[r] = ystep * rs;
@@ -225,9 +230,10 @@ __global__ void __launch_bounds__(kThreads, CB <= 20 ? 4 : 2)
 template <typename T>
 __global__ void upsample_argmax_direct_kernel(const T* __restrict__ logits,
                                               int32_t* __restrict__ out, int n, int h, int w,
-                                              int c, int oh, int ow, bool align_corners) {
+                                              int c, int oh, int ow, int hg, int r0g, int ohg,
+                                              int oy0, bool align_corners) {
   const int64_t total = (int64_t)n * oh * ow;
-  const float sh = bilinear::source_scale(h, oh, align_corners);
+  const bilinear::Rows rows(hg, r0g, ohg, oy0, align_corners);
   const float sw = bilinear::source_scale(w, ow, align_corners);
   for (int64_t p = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; p < total;
        p += (int64_t)gridDim.x * blockDim.x) {
@@ -236,7 +242,7 @@ __global__ void upsample_argmax_direct_kernel(const T* __restrict__ logits,
     const int oy = (int)(rest % oh);
     const int b = (int)(rest / oh);
 
-    const bilinear::Taps<T> t(logits, b, oy, ox, h, w, c, sh, sw, align_corners);
+    const bilinear::Taps<T> t(logits, b, oy, ox, rows, h, w, c, sw, align_corners);
 
     float best = 0.f;
     int best_c = 0;
@@ -253,8 +259,8 @@ __global__ void upsample_argmax_direct_kernel(const T* __restrict__ logits,
 
 template <typename T, int CB>
 int launch_walk_cb(const void* logits, void* out, int n, int h, int w, int c, int oh, int ow,
-                   int align_corners, int band, int tile, int lpp, int window, int threads,
-                   void* stream) {
+                   int hg, int r0g, int ohg, int oy0, int align_corners, int band, int tile,
+                   int lpp, int window, int threads, void* stream) {
   const int bands = (oh + band - 1) / band, tiles = (ow + tile - 1) / tile;
   const int64_t blocks = (int64_t)n * bands * tiles;
   if (blocks > 2147483647LL || threads > kThreads || threads % 32 != 0 || tile * lpp > threads ||
@@ -267,16 +273,16 @@ int launch_walk_cb(const void* logits, void* out, int n, int h, int w, int c, in
     if (err != cudaSuccess) return (int)err;
   }
   upsample_argmax_kernel<T, CB><<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)logits, (int32_t*)out, h, w, c, oh, ow, align_corners != 0, band, tile, lpp,
-      window, bands, tiles);
+      (const T*)logits, (int32_t*)out, h, w, c, oh, ow, hg, r0g, ohg, oy0, align_corners != 0,
+      band, tile, lpp, window, bands, tiles);
   return (int)cudaGetLastError();
 }
 
 // One instantiation for each slice width.
 template <typename T>
-int launch_walk(const void* logits, void* out, int n, int h, int w, int c, int oh, int ow,
-                int align_corners, int band, int tile, int lpp, int window, int threads,
-                void* stream) {
+int launch_walk(const void* logits, void* out, int n, int h, int w, int c, int oh, int ow, int hg,
+                int r0g, int ohg, int oy0, int align_corners, int band, int tile, int lpp,
+                int window, int threads, void* stream) {
   auto launch = &launch_walk_cb<T, 32>;
   switch (walk::class_slice(c, lpp)) {
     case 4: launch = &launch_walk_cb<T, 4>; break;
@@ -289,49 +295,55 @@ int launch_walk(const void* logits, void* out, int n, int h, int w, int c, int o
     case 32: break;
     default: return (int)cudaErrorInvalidValue;
   }
-  return launch(logits, out, n, h, w, c, oh, ow, align_corners, band, tile, lpp, window, threads,
-                stream);
+  return launch(logits, out, n, h, w, c, oh, ow, hg, r0g, ohg, oy0, align_corners, band, tile, lpp,
+                window, threads, stream);
 }
 
 template <typename T>
 int launch_direct(const void* logits, void* out, int n, int h, int w, int c, int oh, int ow,
-                  int align_corners, void* stream) {
+                  int hg, int r0g, int ohg, int oy0, int align_corners, void* stream) {
   const int threads = 256;
   const int64_t total = (int64_t)n * oh * ow;
   int64_t blocks = (total + threads - 1) / threads;
   if (blocks > 1048576) blocks = 1048576;  // grid-stride loop covers the rest
   if (blocks < 1) blocks = 1;
   upsample_argmax_direct_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const T*)logits, (int32_t*)out, n, h, w, c, oh, ow, align_corners != 0);
+      (const T*)logits, (int32_t*)out, n, h, w, c, oh, ow, hg, r0g, ohg, oy0, align_corners != 0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// (hg, r0g, ohg, oy0): the window of output rows (bilinear.cuh's Rows);
+// (h, 0, oh, 0) for the whole image.
 extern "C" int upsample_argmax_bf16(const void* logits, void* out, int n, int h, int w, int c,
-                                    int oh, int ow, int align_corners, int band, int tile,
-                                    int lpp, int window, int threads, void* stream) {
-  return launch_walk<__nv_bfloat16>(logits, out, n, h, w, c, oh, ow, align_corners, band, tile,
-                                    lpp, window, threads, stream);
+                                    int oh, int ow, int hg, int r0g, int ohg, int oy0,
+                                    int align_corners, int band, int tile, int lpp, int window,
+                                    int threads, void* stream) {
+  return launch_walk<__nv_bfloat16>(logits, out, n, h, w, c, oh, ow, hg, r0g, ohg, oy0,
+                                    align_corners, band, tile, lpp, window, threads, stream);
 }
 
 extern "C" int upsample_argmax_f32(const void* logits, void* out, int n, int h, int w, int c,
-                                   int oh, int ow, int align_corners, int band, int tile, int lpp,
-                                   int window, int threads, void* stream) {
-  return launch_walk<float>(logits, out, n, h, w, c, oh, ow, align_corners, band, tile, lpp,
-                            window, threads, stream);
+                                   int oh, int ow, int hg, int r0g, int ohg, int oy0,
+                                   int align_corners, int band, int tile, int lpp, int window,
+                                   int threads, void* stream) {
+  return launch_walk<float>(logits, out, n, h, w, c, oh, ow, hg, r0g, ohg, oy0, align_corners,
+                            band, tile, lpp, window, threads, stream);
 }
 
 extern "C" int upsample_argmax_direct_bf16(const void* logits, void* out, int n, int h, int w,
-                                           int c, int oh, int ow, int align_corners,
-                                           void* stream) {
-  return launch_direct<__nv_bfloat16>(logits, out, n, h, w, c, oh, ow, align_corners, stream);
+                                           int c, int oh, int ow, int hg, int r0g, int ohg,
+                                           int oy0, int align_corners, void* stream) {
+  return launch_direct<__nv_bfloat16>(logits, out, n, h, w, c, oh, ow, hg, r0g, ohg, oy0,
+                                      align_corners, stream);
 }
 
 extern "C" int upsample_argmax_direct_f32(const void* logits, void* out, int n, int h, int w,
-                                          int c, int oh, int ow, int align_corners,
-                                          void* stream) {
-  return launch_direct<float>(logits, out, n, h, w, c, oh, ow, align_corners, stream);
+                                          int c, int oh, int ow, int hg, int r0g, int ohg,
+                                          int oy0, int align_corners, void* stream) {
+  return launch_direct<float>(logits, out, n, h, w, c, oh, ow, hg, r0g, ohg, oy0, align_corners,
+                              stream);
 }
 
 // The dynamic shared-memory bytes of one walk block (the staged window in

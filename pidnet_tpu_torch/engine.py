@@ -14,11 +14,14 @@ multi-scale + flip test-time augmentation of TEST.MULTI_SCALE /
 TEST.FLIP_TEST. They take NHWC float images (numpy or tensor; H and W
 multiples of 64, as the network's 1/64 stage and 1/8 fusions need) and
 return tensors on the model's device. With `data_devices` the first two
-split the batch over one model replica per device (`_data_parallel_infer`).
+split the batch over one model replica per device (`_data_parallel_infer`);
+with `spatial_mesh` (parallel/spatial.py) they split each image's H rows
+over the ranks of the mesh and return the whole result on every rank.
 
 Over a data mesh (parallel/mesh.py) every rank runs `train_one_epoch` and
 `validate` on its own loader shard with the mesh's steps; only rank 0 logs
-the meters and writes TensorBoard.
+the meters and writes TensorBoard. Over a (data, spatial) mesh the ranks of
+a spatial row read the same samples and `shard_rows` keeps each one's rows.
 
 `cfg` needs MODEL.NUM_OUTPUTS, MODEL.ALIGN_CORNERS and TEST.OUTPUT_INDEX,
 PRINT_FREQ and TRAIN.END_EPOCH for training, DATASET.NUM_CLASSES and
@@ -43,7 +46,8 @@ from pidnet_tpu_torch import resolve_device
 from pidnet_tpu_torch.metrics import acc_from_cm, confusion_matrix, iou_from_cm
 from pidnet_tpu_torch.models import pidnet as M
 from pidnet_tpu_torch.ops.resize import resize_bilinear
-from pidnet_tpu_torch.ops.upsample_argmax import upsample_argmax
+from pidnet_tpu_torch.ops.upsample_argmax import upsample_argmax, upsample_argmax_rows
+from pidnet_tpu_torch.parallel import spatial as SP
 from pidnet_tpu_torch.train.lr import poly_lr
 from pidnet_tpu_torch.utils.logging import AverageMeter
 
@@ -66,6 +70,19 @@ def _place_on(device):
     return place
 
 
+def _place_rows(mesh):
+    """`place_batch` over a (data, spatial) mesh: this rank's rows
+    (`parallel.spatial.shard_rows`), images and edges float32, labels
+    int32, a sample mask float32."""
+
+    def place(images, labels, edges, *mask):
+        images, labels, edges, *mask = SP.shard_rows(mesh, images, labels, edges, *mask)
+        return (images.float(), labels.to(torch.int32), edges.float(),
+                *(m.float() for m in mask))
+
+    return place
+
+
 def _is_primary(mesh) -> bool:
     return mesh is None or mesh.rank == 0
 
@@ -80,8 +97,10 @@ def train_one_epoch(cfg, epoch: int, epoch_iters: int, num_iters: int, base_lr: 
     labels, edges)` puts a batch where `step_fn(images, labels, edges, lr)`
     runs it, by default on `mesh`'s device (this rank's share, as
     `parallel.shard_batch` places it) or on the device of `ts.model`; under gradient
-    accumulation the caller passes `parallel.shard_microbatches`. Over a
-    mesh only rank 0 logs the meters and writes TensorBoard. The update at global
+    accumulation the caller passes `parallel.shard_microbatches`; over a
+    (data, spatial) mesh the default keeps this rank's rows
+    (`parallel.spatial.shard_rows`). Over a mesh only rank 0 logs the
+    meters and writes TensorBoard. The update at global
     iteration g uses poly(g-1), as the reference adjusts the LR after each
     step. One step's metrics stay in flight unsynced and are folded into
     the meters at the next step, and at once on PRINT_FREQ iterations; a
@@ -89,8 +108,11 @@ def train_one_epoch(cfg, epoch: int, epoch_iters: int, num_iters: int, base_lr: 
     polled before each step. `start_iter` resumes mid-epoch: the loader
     skips that many batches (`skip_batches`)."""
     if place_batch is None:
-        place_batch = _place_on(next(ts.model.parameters()).device if mesh is None
-                                else mesh.device)
+        if isinstance(mesh, SP.SpatialMesh):
+            place_batch = _place_rows(mesh)
+        else:
+            place_batch = _place_on(next(ts.model.parameters()).device if mesh is None
+                                    else mesh.device)
     primary = _is_primary(mesh)
 
     batch_time = AverageMeter()
@@ -171,7 +193,9 @@ def validate(cfg, loader, eval_step, writer_dict, num_outputs: int = 2, place_ba
     `samples_per_epoch` (a rank's wrap-padded epoch) has the duplicates at
     its tail masked too. `eval_step(images, labels, edges, mask)` returns
     (metrics, cms) (`train.step.make_eval_step`); `place_batch(images,
-    labels, edges, mask)` may move the batch first. The loss meter is
+    labels, edges, mask)` may move the batch first, and over a (data,
+    spatial) mesh by default keeps this rank's rows
+    (`parallel.spatial.shard_rows`). The loss meter is
     weighted by `metrics["weight"]`, the matrices accumulate on the host in
     float64. `should_stop()` is polled before each batch; when it stops the
     epoch early the partial results are returned and no scalar is
@@ -179,6 +203,8 @@ def validate(cfg, loader, eval_step, writer_dict, num_outputs: int = 2, place_ba
     eval step returns the global weight and matrices, so every rank returns
     the same results, and only rank 0 logs them and writes TensorBoard."""
     primary = _is_primary(mesh)
+    if place_batch is None and isinstance(mesh, SP.SpatialMesh):
+        place_batch = _place_rows(mesh)
     ave_loss = AverageMeter()
     num_classes = cfg.DATASET.NUM_CLASSES
     cms = np.zeros((num_outputs, num_classes, num_classes), np.float64)
@@ -309,13 +335,51 @@ def _data_parallel_infer(fn, devices):
     return infer
 
 
+def _spatial_runner(cfg, spec, state_dict, folded, compute_dtype, mesh, data_devices):
+    """`run(x)` of an inference closure over a (data, spatial) mesh: it
+    takes the whole NHWC image batch on every rank and returns this rank's
+    rows of the selected head, computed under
+    `models.pidnet.spatial_sharding`, and the input's (H, W)."""
+    if data_devices is not None:
+        raise ValueError("data_devices and spatial_mesh do not compose: H-shard each image, or "
+                         "split the batch")
+    model, _ = _prepare(spec, state_dict, folded, compute_dtype, mesh.device)
+
+    def sharded(x):
+        if x.ndim != 4 or x.shape[3] != 3 or x.shape[2] % 64:
+            raise ValueError(f"expected (N,H,W,3) images with W a multiple of 64, got "
+                             f"{tuple(x.shape)}")
+        x = SP.shard_rows(mesh, _tensor(x).float())
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        with M.spatial_sharding(model, mesh):
+            out = _select_output(cfg, model(x))
+        return out, (x.shape[1] * mesh.n_spatial, x.shape[2])
+
+    return sharded
+
+
 def make_inference(cfg, spec, state_dict, *, folded=False, compute_dtype=None, device=None,
-                   data_devices=None):
+                   data_devices=None, spatial_mesh=None):
     """Single-image inference closure: model -> TEST.OUTPUT_INDEX ->
     bilinear to input size (align_corners=cfg.MODEL.ALIGN_CORNERS) ->
     exp(), as (N,H,W,C) float32. With `data_devices` (a list, one entry
     per replica; a device may repeat) the batch is split over them
-    (`_data_parallel_infer`) and `device` is not used."""
+    (`_data_parallel_infer`) and `device` is not used. With `spatial_mesh`
+    (`parallel.spatial.make_mesh_2d`) every rank passes the same images,
+    the model runs on the rank's H rows (its device is the mesh's), the
+    1/8 logits are gathered and every rank returns the whole result."""
+    if spatial_mesh is not None:
+        run = _spatial_runner(cfg, spec, state_dict, folded, compute_dtype, spatial_mesh,
+                              data_devices)
+
+        @torch.inference_mode()
+        def infer_rows(x):
+            out, hw = run(x)
+            out = SP.gather_rows(out, spatial_mesh, dim=1)
+            return torch.exp(resize_bilinear(out, hw, cfg.MODEL.ALIGN_CORNERS).float())
+
+        return infer_rows
     if data_devices is not None:
         return _data_parallel_infer(
             lambda d: make_inference(cfg, spec, state_dict, folded=folded,
@@ -333,12 +397,30 @@ def make_inference(cfg, spec, state_dict, *, folded=False, compute_dtype=None, d
 
 
 def make_inference_classmap(cfg, spec, state_dict, *, folded=False, compute_dtype=None,
-                            device=None, data_devices=None):
+                            device=None, data_devices=None, spatial_mesh=None):
     """Class-map inference closure: model -> TEST.OUTPUT_INDEX -> fused
     bilinear-upsample+argmax -> (N,H,W) int32. Argmax-equivalent to
     `make_inference` (exp() is monotonic) while never materializing
     full-resolution logits; on CUDA the upsample+argmax is the hand-written
-    kernel. `data_devices` as in `make_inference`."""
+    kernel. `data_devices` as in `make_inference`. With `spatial_mesh` the
+    model runs on each rank's H rows, the windowed kernel
+    (`upsample_argmax_rows`) makes the rank's rows of the map from its
+    logits and their halo, and an all-gather of the rows gives every rank
+    the whole map."""
+    if spatial_mesh is not None:
+        run = _spatial_runner(cfg, spec, state_dict, folded, compute_dtype, spatial_mesh,
+                              data_devices)
+
+        @torch.inference_mode()
+        def infer_rows(x):
+            out, (h, w) = run(x)
+            rows_out = h // spatial_mesh.n_spatial
+            out, rows = SP.halo_rows(out, rows_out, cfg.MODEL.ALIGN_CORNERS, spatial_mesh)
+            classes = upsample_argmax_rows(out.contiguous(), (rows_out, w),
+                                           cfg.MODEL.ALIGN_CORNERS, rows)
+            return SP.gather_rows(classes, spatial_mesh, dim=1)
+
+        return infer_rows
     if data_devices is not None:
         return _data_parallel_infer(
             lambda d: make_inference_classmap(cfg, spec, state_dict, folded=folded,

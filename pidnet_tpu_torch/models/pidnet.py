@@ -20,7 +20,13 @@ pidnet_tpu/models/pidnet.py, whose canonical `_forward` this mirrors).
 - in training mode (`build(..., train=True)`) each BN normalises with its
   batch statistics and updates its running buffers in place; a bf16 input
   runs every conv in bf16 on fp32 weights cast at the conv (the JAX
-  `compute_dtype=bfloat16` contract).
+  `compute_dtype=bfloat16` contract);
+- `spatial_sharding(model, mesh)` runs a PIDNet on this rank's H rows of
+  an H-sharded batch (parallel/spatial.py): its k > 1 convs exchange halo
+  rows, its interior resizes compute the rank's rows of the whole image's,
+  its BNs take the global batch's statistics, and `_hint` gathers the 1/32
+  map for layer5 and the PPM ("pre_spp") and scatters their 1/8 output
+  back ("post_spp"), the JAX package's two partitioning points.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from pidnet_tpu_torch.nn.functional import (
     sigmoid,
 )
 from pidnet_tpu_torch.ops.resize import interpolate
+from pidnet_tpu_torch.parallel import spatial as SP
 
 ALGC = False  # align_corners for all interior resizes
 
@@ -74,7 +81,9 @@ def spec_for(name: str, num_classes: int, augment: bool) -> PIDNetSpec:
 
 
 class Conv2d(nn.Module):
-    """k x k conv, padding k//2, OIHW weight; runs in the input's dtype."""
+    """k x k conv, padding k//2, OIHW weight; runs in the input's dtype.
+    With `spatial` set (a `parallel.spatial.SpatialMesh`, see
+    `spatial_sharding`) it is this rank's rows of the whole image's conv."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
                  bias: bool = False):
@@ -82,8 +91,11 @@ class Conv2d(nn.Module):
         self.stride, self.groups = stride, groups
         self.weight = nn.Parameter(torch.empty(cout, cin // groups, k, k))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+        self.spatial = None
 
     def forward(self, x):
+        if self.spatial is not None:
+            return SP.conv_rows(x, self.weight, self.bias, self.stride, self.groups, self.spatial)
         return conv2d(x, self.weight, self.bias, stride=self.stride, groups=self.groups)
 
 
@@ -91,7 +103,8 @@ class BatchNorm(nn.Module):
     """BatchNorm, eps 1e-5; keys weight/bias/running_mean/running_var. In
     training mode it normalises with the batch statistics and updates the
     running buffers in place (momentum 0.1, unbiased variance); with
-    `sync` set (a `parallel.mesh.Mesh`, see `sync_batch_norm`) the
+    `sync` set (a `parallel.mesh.Mesh`, see `sync_batch_norm`, or a
+    `parallel.spatial.ReplicatedSync`, see `spatial_sharding`) the
     statistics are the mesh's global batch's."""
 
     def __init__(self, ch: int):
@@ -127,6 +140,15 @@ def sync_batch_norm(model: nn.Module, mesh):
     finally:
         for bn in bns:
             bn.sync = None
+
+
+def _resize(mod: nn.Module, x, hw, align_corners: bool):
+    """An interior bilinear resize of NCHW `x` to `hw`; under
+    `spatial_sharding` (`mod.spatial` set) this rank's rows of the whole
+    image's resize, `x` and `hw` the rank's shares."""
+    if mod.spatial is None:
+        return interpolate(x, hw, align_corners)
+    return SP.resize_sharded(x, hw, align_corners, mod.spatial)
 
 
 class Affine(nn.Module):
@@ -308,18 +330,19 @@ class PagFM(nn.Module):
         self.f_y = ConvBN(cin, mid, 1, folded=folded)
         if with_channel:
             self.up = ConvBN(mid, cin, 1, folded=folded)
+        self.spatial = None
 
     def forward(self, x, y):
         hw = (x.shape[2], x.shape[3])
         if self.after_relu:
             x, y = relu(x), relu(y)
-        y_q = interpolate(self.f_y(y), hw, False)
+        y_q = _resize(self, self.f_y(y), hw, False)
         x_k = self.f_x(x)
         if self.with_channel:
             sim = sigmoid(self.up(x_k * y_q))
         else:
             sim = sigmoid(torch.sum(x_k * y_q, dim=1, keepdim=True))
-        y_up = interpolate(y, hw, False)
+        y_up = _resize(self, y, hw, False)
         return (1 - sim) * x + sim * y_up
 
 
@@ -461,6 +484,13 @@ class PIDNet(Network):
             self.seghead_p = SegHead(p * 2, spec.head_planes, spec.num_classes, **kw)
             self.seghead_d = SegHead(p * 2, p, 1, **kw)
         self.final_layer = SegHead(p * 4, spec.head_planes, spec.num_classes, **kw)
+        self.spatial = None
+
+    def _hint(self, name: str, x):
+        """The JAX package's partitioning points, "pre_spp" and "post_spp";
+        identity unless `spatial_sharding` set `spatial`
+        (parallel/spatial.hint)."""
+        return x if self.spatial is None else SP.hint(name, x, self.spatial)
 
     def forward(self, x):
         """NHWC image (N,H,W,3), H and W multiples of 64 -> NHWC logits at
@@ -476,21 +506,64 @@ class PIDNet(Network):
         # so seghead_p reads relu(pag3 output); the same holds for temp_d.
         x_ = relu(self.pag3(x_, self.compression3(x)))
         temp_p = x_
-        x_d = x_d + interpolate(self.diff3(x), hw8, ALGC)
+        x_d = x_d + _resize(self, self.diff3(x), hw8, ALGC)
         x = relu(self.layer4(x))  # I @1/32
         x_ = self.layer4_(x_)
         x_d = self.layer4_d(relu(x_d))
         x_ = self.pag4(x_, self.compression4(x))
-        x_d = relu(x_d + interpolate(self.diff4(x), hw8, ALGC))
+        x_d = relu(x_d + _resize(self, self.diff4(x), hw8, ALGC))
         temp_d = x_d
         x_ = self.layer5_(relu(x_))
         x_d = self.layer5_d(x_d)
-        x = interpolate(self.spp(self.layer5(x)), hw8, ALGC)  # I @1/64 -> 1/8
+        x = self.spp(self.layer5(self._hint("pre_spp", x)))  # I @1/64
+        # to 8x the 1/64 map, the input's 1/8 (H and W multiples of 64): under
+        # H-sharding the map is the whole image's and hw8 only a shard's
+        x = self._hint("post_spp", interpolate(x, (8 * x.shape[2], 8 * x.shape[3]), ALGC))
         out = self.final_layer(self.dfm(x_, x, x_d))
         if self.spec.augment:
             heads = [self.seghead_p(temp_p), out, self.seghead_d(temp_d)]
             return [h.permute(0, 2, 3, 1) for h in heads]
         return out.permute(0, 2, 3, 1)
+
+
+@contextlib.contextmanager
+def spatial_sharding(model: nn.Module, mesh):
+    """Inside, `model` (a PIDNet) runs on this rank's H rows of a batch
+    sharded over `mesh` (`parallel.spatial.SpatialMesh`; `shard_rows`
+    places the batch) and returns the rank's rows of the whole batch's
+    heads: each k > 1 conv exchanges its halo rows (`conv_rows`), each
+    interior resize computes the rank's rows of the whole image's
+    (`resize_sharded`), `_hint` gathers the 1/32 map before layer5 and
+    scatters the 1/8 output of the PPM, and each BN in training mode takes
+    the global batch's statistics: over the mesh outside layer5 and the
+    PPM, and inside them, where the S ranks of a row hold the same whole
+    map, with the global pixel count of n_data ranks'. DDRNet-23 and
+    BiSeNetV1 have further gather points and raise NotImplementedError."""
+    if not isinstance(model, PIDNet):
+        raise NotImplementedError(
+            f"H-sharding (--spatial) of {type(model).__name__} is not ported yet (ROADMAP.md "
+            "Queue 1 item 6b): its global pools need gather points of their own")
+    gathered = {id(m) for part in (model.layer5, model.spp) for m in part.modules()}
+    ppm = SP.replicated_sync(mesh)
+    touched = []
+    for m in model.modules():
+        inside = id(m) in gathered
+        if isinstance(m, BatchNorm):
+            m.sync = ppm if inside else mesh.world
+        elif (isinstance(m, (PagFM, PIDNet))
+              or (isinstance(m, Conv2d) and not inside and m.weight.shape[-1] > 1)):
+            m.spatial = mesh
+        else:
+            continue
+        touched.append(m)
+    try:
+        yield
+    finally:
+        for m in touched:
+            if isinstance(m, BatchNorm):
+                m.sync = None
+            else:
+                m.spatial = None
 
 
 def module_for(spec) -> type[Network]:

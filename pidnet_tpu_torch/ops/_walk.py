@@ -7,7 +7,8 @@ band of output rows and a tile of output columns of one image, stages the
 source pixels under their taps in shared memory, and walks the band's rows
 with one thread (or `lpp` lanes) to each output column. `walk_plan` cuts
 the output into those blocks; the kernels read the plan's band, tile,
-lanes, window and threads.
+lanes, window and threads. Under H-sharding the output is a window of rows
+of a taller image (ops/resize.Rows), whose taps are the whole image's.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from pidnet_tpu_torch.ops.resize import source_taps
+from pidnet_tpu_torch.ops.resize import Rows, source_taps, window_taps
 
 SMEM_OPT_IN = 232448  # 227 KB: the most shared memory an H100 block can opt in to
 MIN_BLOCKS = 2 * 132  # two blocks on each of the H100's SMs
@@ -47,12 +48,12 @@ def stage_bytes(c: int, window: int, lpp: int, itemsize: int) -> int:
     return -(-window * lpp * class_slice(c, lpp) * itemsize // 16) * 16
 
 
-def _spans(in_size: int, out_size: int, step: int, align_corners: bool):
-    """(spans, 2) output ranges [a, b) of `step` indices each, and (spans,
-    2) the source ranges [i0(a), i1(b-1) + 1) their taps read."""
-    i0, i1, _ = source_taps(in_size, out_size, align_corners)
-    a = np.arange(0, out_size, step)
-    b = np.minimum(a + step, out_size)
+def _spans(i0: np.ndarray, i1: np.ndarray, step: int):
+    """(spans, 2) ranges [a, b) of `step` of the output indices whose taps
+    are (i0, i1), and (spans, 2) the source ranges [i0(a), i1(b-1) + 1)
+    their taps read."""
+    a = np.arange(0, len(i0), step)
+    b = np.minimum(a + step, len(i0))
     return np.stack([a, b], 1), np.stack([i0[a], i1[b - 1] + 1], 1)
 
 
@@ -71,7 +72,7 @@ class WalkPlan(NamedTuple):
 
 
 def walk_plan(n: int, h: int, w: int, oh: int, ow: int, align_corners: bool, lpp: int,
-              smem_of, smem_target: int) -> WalkPlan:
+              smem_of, smem_target: int, rows: Rows | None = None) -> WalkPlan:
     """Blocks of a column walk: one per image, band of output rows and tile
     of output columns, each pixel owned by one block; lpp lanes to each of
     the tile's columns. The tile is the widest that fits 256 threads,
@@ -81,22 +82,25 @@ def walk_plan(n: int, h: int, w: int, oh: int, ow: int, align_corners: bool, lpp
     either end, so the window leaves room for two more rows and two more
     columns. The band is the largest of `BANDS` whose block needs at most
     `smem_target` bytes (`smem_of(window)`) and which still gives two
-    blocks to each of the card's 132 SMs, else 1."""
+    blocks to each of the card's 132 SMs, else 1. `rows` (default the
+    whole image) is the window of output rows the h local source rows
+    serve; its rows' source ranges are local rows."""
     tile = -(-ow // -(-ow // (THREADS // lpp)))
-    cols, src_cols = _spans(w, ow, tile, align_corners)
+    cols, src_cols = _spans(*source_taps(w, ow, align_corners)[:2], tile)
     nq = min(int((src_cols[:, 1] - src_cols[:, 0]).max()) + 2, w)
+    row_taps = window_taps(rows or Rows.whole(h, oh), oh, align_corners)[:2]
 
     def window_of(band):
-        rows, src_rows = _spans(h, oh, band, align_corners)
-        return rows, src_rows, min(int((src_rows[:, 1] - src_rows[:, 0]).max()) + 2, h) * nq
+        spans, src_rows = _spans(*row_taps, band)
+        return spans, src_rows, min(int((src_rows[:, 1] - src_rows[:, 0]).max()) + 2, h) * nq
 
     band = 1
     for cand in BANDS:
-        rows, _, window = window_of(cand)
-        if smem_of(window) <= smem_target and n * len(rows) * len(cols) >= MIN_BLOCKS:
+        spans, _, window = window_of(cand)
+        if smem_of(window) <= smem_target and n * len(spans) * len(cols) >= MIN_BLOCKS:
             band = cand
             break
-    rows, src_rows, window = window_of(band)
+    spans, src_rows, window = window_of(band)
     threads = -(-tile * lpp // 32) * 32
-    return WalkPlan(band, tile, lpp, rows, cols, src_rows, src_cols, window, threads,
-                    smem_of(window), n * len(rows) * len(cols))
+    return WalkPlan(band, tile, lpp, spans, cols, src_rows, src_cols, window, threads,
+                    smem_of(window), n * len(spans) * len(cols))

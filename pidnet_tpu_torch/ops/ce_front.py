@@ -25,6 +25,14 @@ it runs the plain version, `ce_front_fwd_plain` / `ce_front_bwd_plain`.
 each output element once, without atomics, so their outputs are the same
 bit for bit from run to run; `forward_plan` and `backward_plan` cut the
 work into their blocks.
+
+Under H-sharding (parallel/spatial.py) every function here takes `rows`
+(ops/resize.Rows, None for the whole image): the labels and maps are a
+window of output rows of a taller image, the logits a slice of its rows
+with their halo, and the taps the whole image's; the backward's gradient
+covers the slice's rows, the halo rows included. `fwd_window_launches` and
+`bwd_window_launches` count the launches over a window other than the
+whole image.
 """
 
 from __future__ import annotations
@@ -40,10 +48,14 @@ import torch
 from pidnet_tpu_torch.ops._walk import (MIN_BLOCKS, SMEM_OPT_IN, THREADS, WalkPlan,
                                         class_slice, lanes_per_pixel, stage_bytes,
                                         walk_plan)
-from pidnet_tpu_torch.ops.resize import _interp_matrix, interpolate, source_taps
+from pidnet_tpu_torch.ops.resize import (Rows, _interp_matrix, check_rows, interpolate,
+                                         source_taps, window_matrix, window_taps)
 
 fwd_launches = 0
 bwd_launches = 0
+# the launches over a window other than the whole image
+fwd_window_launches = 0
+bwd_window_launches = 0
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _SMEM_TARGET = 113 * 1024  # two backward blocks an SM
@@ -62,37 +74,48 @@ def class_weights_on(class_weights, c: int, device) -> torch.Tensor:
     return torch.as_tensor(class_weights, dtype=torch.float32, device=device)
 
 
-def _z(logits: torch.Tensor, out_hw, align_corners: bool) -> torch.Tensor:
-    """(N,OH,OW,C) fp32 bilinear upsample of NHWC logits (F.interpolate)."""
+def _z(logits: torch.Tensor, out_hw, align_corners: bool, rows: Rows | None = None):
+    """(N,OH,OW,C) fp32 bilinear upsample of NHWC logits (F.interpolate);
+    for a window `rows` other than the whole image, the window's rows of
+    the dense operators (ops/resize.window_matrix)."""
+    oh, ow = int(out_hw[0]), int(out_hw[1])
     x = logits.permute(0, 3, 1, 2).float()
-    return interpolate(x, out_hw, align_corners).permute(0, 2, 3, 1)
+    if rows is None or rows == Rows.whole(x.shape[2], oh):
+        return interpolate(x, (oh, ow), align_corners).permute(0, 2, 3, 1)
+    a = torch.from_numpy(window_matrix(rows, x.shape[2], oh, align_corners)).to(x.device)
+    b = torch.from_numpy(_interp_matrix(x.shape[3], ow, align_corners)).to(x.device)
+    return torch.einsum("yi,ncij,xj->nyxc", a, x, b)
 
 
 def ce_front_fwd_plain(logits, labels, class_weights, ignore_label: int, out_hw,
-                       align_corners: bool):
-    """(nll, w), each (N,OH,OW) fp32: F.interpolate in fp32, then the
-    one-hot CE maps of losses.criterion._per_pixel_ce (the counterpart of
-    the JAX package's `_xla_ce_maps`)."""
+                       align_corners: bool, rows: Rows | None = None):
+    """(nll, w), each (N,OH,OW) fp32: F.interpolate in fp32 (`_z`), then
+    the one-hot CE maps of losses.criterion._per_pixel_ce (the counterpart
+    of the JAX package's `_xla_ce_maps`)."""
     from pidnet_tpu_torch.losses.criterion import _per_pixel_ce
 
     cw = class_weights_on(class_weights, logits.shape[-1], logits.device)
-    nll, w, valid = _per_pixel_ce(_z(logits, out_hw, align_corners), labels, cw, ignore_label)
+    nll, w, valid = _per_pixel_ce(_z(logits, out_hw, align_corners, rows), labels, cw,
+                                  ignore_label)
     return torch.where(valid, nll, 0.0), w
 
 
-def ce_front_bwd_plain(logits, labels, ignore_label: int, out_hw, align_corners: bool, g):
+def ce_front_bwd_plain(logits, labels, ignore_label: int, out_hw, align_corners: bool, g,
+                       rows: Rows | None = None):
     """dL (N,h,w,C) in the logits' dtype: the explicit formula
     A^T (g * (softmax(z) - onehot)) B with the dense operators of
-    ops/resize._interp_matrix, g zeroed where the label is ignore or
-    outside [0, C)."""
+    ops/resize._interp_matrix (A the window's rows of it), g zeroed where
+    the label is ignore or outside [0, C)."""
     n, h, w, c = logits.shape
     oh, ow = int(out_hw[0]), int(out_hw[1])
-    p = torch.softmax(_z(logits, (oh, ow), align_corners), dim=-1)
+    p = torch.softmax(_z(logits, (oh, ow), align_corners, rows), dim=-1)
     labels = labels.long()
     counted = (labels != ignore_label) & (labels >= 0) & (labels < c)
     onehot = torch.where(counted, labels, 0)[..., None] == torch.arange(c, device=labels.device)
     dz = torch.where(counted, g.float(), 0.0)[..., None] * (p - onehot.float())
-    a = torch.from_numpy(_interp_matrix(h, oh, align_corners)).to(logits.device)
+    a = _interp_matrix(h, oh, align_corners) if rows is None else window_matrix(
+        rows, h, oh, align_corners)
+    a = torch.from_numpy(a).to(logits.device)
     b = torch.from_numpy(_interp_matrix(w, ow, align_corners)).to(logits.device)
     return torch.einsum("yi,nyxc,xj->nijc", a, dz, b).to(logits.dtype)
 
@@ -104,10 +127,21 @@ def _kernel_fn(kind: str, dtype: torch.dtype):
 
         fn = getattr(library("ce_front"), name)
         n_ptrs = 5 if kind == "fwd" else 4
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 17 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
+
+
+def _rows(rows, h: int, oh: int, align_corners: bool):
+    """(the kernels' four row arguments, the plans' window): the whole
+    image's for None, else `rows` checked against the h local source rows
+    (ops/resize.check_rows)."""
+    if rows is None:
+        return (h, 0, oh, 0), None
+    rows = Rows(*(int(v) for v in rows))
+    check_rows(rows, h, oh, bool(align_corners))
+    return rows, None if rows == Rows.whole(h, oh) else rows
 
 
 def _check(fn_name: str, logits, labels, out_hw, g=None):
@@ -135,18 +169,20 @@ def _check(fn_name: str, logits, labels, out_hw, g=None):
 
 
 def ce_front_fwd(logits, labels, class_weights, ignore_label: int, out_hw,
-                 align_corners: bool):
+                 align_corners: bool, rows: Rows | None = None):
     """(nll, w), each (N,OH,OW) fp32, from (N,h,w,C) logits and (N,OH,OW)
-    labels. On a CUDA tensor (contiguous NHWC bf16/fp32 logits, contiguous
-    int32 labels, C <= 1024) this launches the forward kernel on
-    `forward_plan`'s blocks, which writes each pixel once; on a CPU tensor
-    it runs `ce_front_fwd_plain`."""
-    global fwd_launches
+    labels, over the window `rows` (None: the whole image). On a CUDA
+    tensor (contiguous NHWC bf16/fp32 logits, contiguous int32 labels,
+    C <= 1024) this launches the forward kernel on `forward_plan`'s blocks,
+    which writes each pixel once; on a CPU tensor it runs
+    `ce_front_fwd_plain`."""
+    global fwd_launches, fwd_window_launches
     if logits.device.type == "cpu":
         return ce_front_fwd_plain(logits, labels, class_weights, ignore_label, out_hw,
-                                  align_corners)
+                                  align_corners, rows)
     n, h, w, c, oh, ow = _check("ce_front_fwd", logits, labels, out_hw)
-    plan = forward_plan(n, h, w, c, oh, ow, bool(align_corners), logits.element_size())
+    args, window = _rows(rows, h, oh, align_corners)
+    plan = forward_plan(n, h, w, c, oh, ow, bool(align_corners), logits.element_size(), window)
     fn = _kernel_fn("fwd", logits.dtype)
     # switch devices only where needed: the switch's host time shows in
     # back-to-back launches
@@ -158,12 +194,13 @@ def ce_front_fwd(logits, labels, class_weights, ignore_label: int, out_hw,
         wmap = torch.empty_like(nll)
         stream = torch.cuda.current_stream(logits.device).cuda_stream
         err = fn(logits.data_ptr(), labels.data_ptr(), cw.data_ptr(), nll.data_ptr(),
-                 wmap.data_ptr(), n, h, w, c, oh, ow, int(ignore_label),
+                 wmap.data_ptr(), n, h, w, c, oh, ow, *args, int(ignore_label),
                  int(bool(align_corners)), plan.band, plan.tile, plan.lpp, plan.window,
                  plan.threads, stream)
     if err != 0:
         raise RuntimeError(f"ce_front_fwd kernel launch failed: cudaError {err}")
     fwd_launches += 1
+    fwd_window_launches += window is not None
     return nll, wmap
 
 
@@ -176,26 +213,33 @@ def forward_smem_bytes(c: int, window: int, lpp: int, itemsize: int) -> int:
 
 @lru_cache(maxsize=64)
 def forward_plan(n: int, h: int, w: int, c: int, oh: int, ow: int, align_corners: bool,
-                 itemsize: int) -> WalkPlan:
+                 itemsize: int, rows: Rows | None = None) -> WalkPlan:
     """The forward kernel's blocks (ops/_walk.walk_plan), lpp lanes a pixel
     (`lanes_per_pixel`), with bands whose block fits in 72 KB of shared
     memory (three blocks an SM); raises above 1024 classes or where a
-    block would need more than the opt-in."""
+    block would need more than the opt-in. `rows`: the window of output
+    rows (default the whole image)."""
     lpp = lanes_per_pixel(c, "ce_front_fwd")
     plan = walk_plan(n, h, w, oh, ow, align_corners, lpp,
                      lambda window: forward_smem_bytes(c, window, lpp, itemsize),
-                     _FWD_SMEM_TARGET)
+                     _FWD_SMEM_TARGET, rows)
     if plan.smem > SMEM_OPT_IN:
         raise ValueError(f"ce_front_fwd: a block needs {plan.smem} bytes of shared memory")
     return plan
 
 
-def tap_ranges(in_size: int, out_size: int, tile: int, align_corners: bool) -> np.ndarray:
+def tap_ranges(in_size: int, out_size: int, tile: int, align_corners: bool,
+               rows: Rows | None = None) -> np.ndarray:
     """(tiles, 2) output ranges [a, b) of source tiles [s, s + tile): the
     output indices with a tap in the tile, i0 in [s, s + tile), or i0 ==
     s - 1 with lambda1 > 0 (the halo, whose lambda1 lands on s). The
-    kernel's rule (first_reaching in csrc/ce_front.cu) on `source_taps`."""
-    i0, _, l1 = source_taps(in_size, out_size, align_corners)
+    kernel's rule (first_reaching in csrc/ce_front.cu) on `source_taps`.
+    With `rows`, the window's `out_size` output rows and its `in_size`
+    local source rows, the taps the whole image's (`window_taps`)."""
+    if rows is None:
+        i0, _, l1 = source_taps(in_size, out_size, align_corners)
+    else:
+        i0, _, l1 = window_taps(rows, out_size, align_corners)
     out = []
     for s in range(0, in_size, tile):
         reach = np.flatnonzero((i0 >= s) | ((i0 == s - 1) & (l1 > 0)))
@@ -228,7 +272,7 @@ class BackwardPlan(NamedTuple):
 
 @lru_cache(maxsize=64)
 def backward_plan(n: int, h: int, w: int, c: int, oh: int, ow: int, align_corners: bool,
-                  itemsize: int) -> BackwardPlan:
+                  itemsize: int, rows: Rows | None = None) -> BackwardPlan:
     """The backward kernel's blocks: one per image, band of BH source rows
     and tile of BW source columns; lpp lanes to each of the tile's output
     columns (the fewest, a power of two, that hold C in slices of at most
@@ -237,7 +281,8 @@ def backward_plan(n: int, h: int, w: int, c: int, oh: int, ow: int, align_corner
     at a tile's edge), fit 256 threads, then evened out over the tiles. BH
     is the largest of 8, 4, 2 whose block fits in 113 KB of shared memory
     (two blocks an SM) and which still gives two blocks to each of the
-    card's 132 SMs, else 1."""
+    card's 132 SMs, else 1. `rows`: the window of output rows (default the
+    whole image); the bands are of local source rows."""
     lpp = lanes_per_pixel(c, "ce_front_bwd")
     columns = BWD_THREADS // lpp
 
@@ -263,61 +308,66 @@ def backward_plan(n: int, h: int, w: int, c: int, oh: int, ow: int, align_corner
     smem = backward_smem_bytes(c, band, tile, xw, lpp, itemsize)
     if smem > SMEM_OPT_IN:
         raise ValueError(f"ce_front_bwd: a block needs {smem} bytes of shared memory")
-    rows = tap_ranges(h, oh, band, align_corners)
+    spans = tap_ranges(h, oh, band, align_corners, rows)
     threads = -(-xw * lpp // 32) * 32
-    return BackwardPlan(band, tile, lpp, rows, cols, xw, threads, smem,
-                        n * len(rows) * len(cols))
+    return BackwardPlan(band, tile, lpp, spans, cols, xw, threads, smem,
+                        n * len(spans) * len(cols))
 
 
-def ce_front_bwd(logits, labels, ignore_label: int, out_hw, align_corners: bool, g):
+def ce_front_bwd(logits, labels, ignore_label: int, out_hw, align_corners: bool, g,
+                 rows: Rows | None = None):
     """dL (N,h,w,C) in the logits' dtype from the nll map's gradient g
-    (N,OH,OW). On a CUDA tensor this launches the backward kernel, which
-    sums in fp32 in a fixed order and writes each element of dL once; on a
-    CPU tensor it runs `ce_front_bwd_plain`."""
-    global bwd_launches
+    (N,OH,OW), over the window `rows` (None: the whole image). On a CUDA
+    tensor this launches the backward kernel, which sums in fp32 in a fixed
+    order and writes each element of dL once; on a CPU tensor it runs
+    `ce_front_bwd_plain`."""
+    global bwd_launches, bwd_window_launches
     if logits.device.type == "cpu":
-        return ce_front_bwd_plain(logits, labels, ignore_label, out_hw, align_corners, g)
+        return ce_front_bwd_plain(logits, labels, ignore_label, out_hw, align_corners, g, rows)
     n, h, w, c, oh, ow = _check("ce_front_bwd", logits, labels, out_hw, g)
-    plan = backward_plan(n, h, w, c, oh, ow, bool(align_corners), logits.element_size())
+    args, window = _rows(rows, h, oh, align_corners)
+    plan = backward_plan(n, h, w, c, oh, ow, bool(align_corners), logits.element_size(), window)
     fn = _kernel_fn("bwd", logits.dtype)
     with torch.cuda.device(logits.device):
         dl = torch.empty_like(logits)
         stream = torch.cuda.current_stream(logits.device).cuda_stream
         err = fn(logits.data_ptr(), labels.data_ptr(), g.data_ptr(), dl.data_ptr(), n, h, w, c,
-                 oh, ow, int(ignore_label), int(bool(align_corners)), plan.band, plan.tile,
+                 oh, ow, *args, int(ignore_label), int(bool(align_corners)), plan.band, plan.tile,
                  plan.xw, plan.lpp, plan.threads, stream)
     if err != 0:
         raise RuntimeError(f"ce_front_bwd kernel launch failed: cudaError {err}")
     bwd_launches += 1
+    bwd_window_launches += window is not None
     return dl
 
 
 class _CEFront(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, labels, class_weights, ignore_label, out_hw, align_corners):
+    def forward(ctx, logits, labels, class_weights, ignore_label, out_hw, align_corners, rows):
         nll, w = ce_front_fwd(logits, labels, class_weights, ignore_label, out_hw,
-                              align_corners)
+                              align_corners, rows)
         ctx.save_for_backward(logits, labels)
-        ctx.args = (ignore_label, out_hw, align_corners)
+        ctx.args = (ignore_label, out_hw, align_corners, rows)
         ctx.mark_non_differentiable(w)
         return nll, w
 
     @staticmethod
     def backward(ctx, g_nll, g_w):
         logits, labels = ctx.saved_tensors
-        ignore_label, out_hw, align_corners = ctx.args
+        ignore_label, out_hw, align_corners, rows = ctx.args
         dl = ce_front_bwd(logits, labels, ignore_label, out_hw, align_corners,
-                          g_nll.float().contiguous())
-        return dl, None, None, None, None, None
+                          g_nll.float().contiguous(), rows)
+        return dl, None, None, None, None, None, None
 
 
-def ce_maps(logits, labels, class_weights, ignore_label: int, out_hw, align_corners: bool):
+def ce_maps(logits, labels, class_weights, ignore_label: int, out_hw, align_corners: bool,
+            rows: Rows | None = None):
     """(per-pixel nll, per-pixel class weight), each (N,OH,OW) fp32, from
-    (N,h,w,C) logits and (N,OH,OW) int labels; differentiable in `logits`
-    (the weight map is not). Ignored pixels, and labels outside [0, C),
-    give (0, 0)."""
+    (N,h,w,C) logits and (N,OH,OW) int labels, over the window `rows`
+    (None: the whole image); differentiable in `logits` (the weight map is
+    not). Ignored pixels, and labels outside [0, C), give (0, 0)."""
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if logits.device.type != "cpu":
         labels = labels.to(torch.int32)
     return _CEFront.apply(logits.contiguous(), labels.contiguous(), class_weights,
-                          int(ignore_label), (oh, ow), bool(align_corners))
+                          int(ignore_label), (oh, ow), bool(align_corners), rows)

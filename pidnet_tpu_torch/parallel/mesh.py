@@ -8,7 +8,9 @@ device. Each rank holds a replica of the model on its own device and its
 share of the global batch, and the steps call the collectives explicitly:
 
 - `Mesh.all_reduce_mean` averages a list of fp32 tensors as one flat
-  bucket (a train step's gradients, new BN statistics and metrics);
+  bucket (a train step's gradients, new BN statistics and metrics), and
+  `Mesh.all_reduce_sums` adds them (the H-sharded step's, whose ranks hold
+  contributions to one global loss: parallel/spatial.py);
 - `Mesh.pmean` is the autograd-aware mean of sync BN: its forward and its
   backward are the same all-reduce mean, the transpose of `lax.pmean`
   inside shard_map;
@@ -53,7 +55,7 @@ def init_process_group(device, backend: str | None = None) -> str:
         raise RuntimeError(
             f"a multi-process run reads torchrun's environment and {', '.join(missing)} "
             "is not set: start it as torchrun --nproc-per-node N -m "
-            "pidnet_tpu_torch.tools.train --multihost ...")
+            "pidnet_tpu_torch.tools.train --multihost ... (or tools.eval --spatial N ...)")
     backend = backend or default_backend(device)
     dist.init_process_group(backend, init_method="env://", rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]))
@@ -100,11 +102,20 @@ class Mesh:
     def all_reduce_mean(self, tensors: list) -> list:
         """The mean over the ranks of each fp32 tensor, as views of one
         flat bucket: a single collective for the whole list."""
+        return self._bucket(tensors, mean=True)
+
+    def all_reduce_sums(self, tensors: list) -> list:
+        """The sum over the ranks of each fp32 tensor, as views of one flat
+        bucket: a single collective for the whole list."""
+        return self._bucket(tensors, mean=False)
+
+    def _bucket(self, tensors: list, mean: bool) -> list:
         if self.group is None:
             return list(tensors)
         flat = torch.cat([t.reshape(-1) for t in tensors])
         dist.all_reduce(flat, group=self.group)
-        flat /= self.size
+        if mean:
+            flat /= self.size
         return [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in tensors]),
                                                  tensors)]
 

@@ -63,7 +63,7 @@ def variant_source(name: str, variants: dict = VARIANTS, tool: str = "ce_bwd_abl
 
 def build_variants(variants: dict = VARIANTS, tool: str = "ce_bwd_ablate",
                    fn_name: str = "ce_bwd_bf16", n_ptrs: int = 4, source: str = "ce_front",
-                   n_ints: int = 13) -> dict:
+                   n_ints: int = 17) -> dict:
     """Compile every variant of csrc/<source>.cu at once (one nvcc each)
     into csrc/build/; returns {name: the bf16 launch function `fn_name`,
     whose arguments are `n_ptrs` pointers, `n_ints` ints and the stream}."""
@@ -108,8 +108,8 @@ def run(seed: int = 1) -> dict:
     g = torch.from_numpy(rng.random((n, oh, ow)).astype(np.float32)).cuda()
     dl = torch.empty_like(x)
     plan = cf.backward_plan(n, h, w, c, oh, ow, True, x.element_size())
-    args = (x.data_ptr(), labels.data_ptr(), g.data_ptr(), dl.data_ptr(), n, h, w, c, oh, ow, 255,
-            1, plan.band, plan.tile, plan.xw, plan.lpp, plan.threads,
+    args = (x.data_ptr(), labels.data_ptr(), g.data_ptr(), dl.data_ptr(), n, h, w, c, oh, ow, h, 0,
+            oh, 0, 255, 1, plan.band, plan.tile, plan.xw, plan.lpp, plan.threads,
             torch.cuda.current_stream().cuda_stream)
     return time_variants(fns, args)
 

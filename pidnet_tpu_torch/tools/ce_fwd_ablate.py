@@ -77,8 +77,8 @@ def run(seed: int = 1) -> dict:
     wmap = torch.empty_like(nll)
     plan = cf.forward_plan(n, h, w, c, oh, ow, True, x.element_size())
     args = (x.data_ptr(), labels.data_ptr(), cw.data_ptr(), nll.data_ptr(), wmap.data_ptr(), n, h,
-            w, c, oh, ow, 255, 1, plan.band, plan.tile, plan.lpp, plan.window, plan.threads,
-            torch.cuda.current_stream().cuda_stream)
+            w, c, oh, ow, h, 0, oh, 0, 255, 1, plan.band, plan.tile, plan.lpp, plan.window,
+            plan.threads, torch.cuda.current_stream().cuda_stream)
     return ce_bwd_ablate.time_variants(fns, args, TOOL)
 
 

@@ -3,6 +3,7 @@ tools/eval.py UX:
 
     python -m pidnet_tpu_torch.tools.eval --cfg configs/cityscapes/pidnet_small_cityscapes.yaml \
         [--fold-bn] [--device cpu] [TEST.MODEL_FILE path.{pt,npz}] [KEY VALUE ...]
+    torchrun --nproc-per-node N -m pidnet_tpu_torch.tools.eval --spatial N --cfg ... [KEY VALUE]
 
 The model file is TEST.MODEL_FILE, else <final_output_dir>/best.pt.
 Dispatch (reference tools/eval.py:104): a Cityscapes test list goes to the
@@ -17,7 +18,15 @@ DEVICES > 1 (or -1 on a machine with several cards) without the
 test-time augmentation evaluates data-parallel: one model replica per card
 (engine._data_parallel_infer), batches of one frame per replica, the last
 padded; with --device cpu, that many replicas on the CPU. Asking for more
-cards than the machine has raises. --spatial is not ported.
+cards than the machine has raises.
+
+--spatial N shards each frame's H rows over N processes (a (1, N) mesh,
+parallel/spatial.py), which join the process group from torchrun's
+environment (nccl on cuda:LOCAL_RANK, gloo with --device cpu): every rank
+reads every frame, runs its rows and gathers the whole prediction, so the
+scores are the same on every rank; rank 0 logs and writes. It refuses the
+test-time augmentation, and DDRNet-23 and BiSeNetV1 (ROADMAP.md Queue 1
+item 6b).
 """
 
 from __future__ import annotations
@@ -26,11 +35,14 @@ import argparse
 import os
 
 import torch
+import torch.distributed as dist
 
 from pidnet_tpu_torch import engine, resolve_device
 from pidnet_tpu_torch.config import load_config
 from pidnet_tpu_torch.convert.fold import fold_state_dict
 from pidnet_tpu_torch.data import Loader, build_dataset
+from pidnet_tpu_torch.parallel.mesh import init_process_group
+from pidnet_tpu_torch.parallel.spatial import make_mesh_2d
 from pidnet_tpu_torch.tools import common
 from pidnet_tpu_torch.utils.logging import create_logger
 
@@ -43,7 +55,8 @@ def parse_args(argv=None):
                         help="fold BatchNorm into the convs (speed path); the compute dtype is "
                         "then XLA.BF16_INFERENCE's (bf16 by default)")
     parser.add_argument("--spatial", type=int, default=0, metavar="N",
-                        help="H-sharding over N devices: not ported (ROADMAP.md Queue 1 item 6)")
+                        help="shard each frame's H rows over N processes started by torchrun "
+                        "(parallel/spatial.py)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     return parser.parse_args(argv)
@@ -64,17 +77,49 @@ def _data_devices(devices: int, dev: torch.device):
     return [torch.device("cuda", i) for i in range(devices)]
 
 
+def _spatial_mesh(n: int, dev: torch.device):
+    """(the (1, n) mesh, this process's device, whether it joined a process
+    group): n > 1 processes join torchrun's, on cuda:LOCAL_RANK for a
+    CUDA device; n = 1 is this process alone."""
+    joined = n > 1
+    if joined:
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(dev)
+        init_process_group(dev)
+    try:
+        return make_mesh_2d(1, n, dev), dev, joined
+    except BaseException:
+        if joined:
+            dist.destroy_process_group()
+        raise
+
+
 def main(argv=None):
     """Returns (mean IoU, IoU array, pixel accuracy, mean accuracy) of a
     labelled list, None for a Cityscapes test list."""
     args = parse_args(argv)
-    if args.spatial:
-        raise NotImplementedError("--spatial is not ported yet (ROADMAP.md Queue 1 item 6)")
     dev = resolve_device(args.device)
     cfg = load_config(args.cfg, args.opts)
     tta = bool(cfg.TEST.MULTI_SCALE or cfg.TEST.FLIP_TEST)
-    data_devices = None if tta else _data_devices(cfg.DEVICES, dev)
-    logger, final_output_dir, _ = create_logger(cfg, args.cfg, "test")
+    if args.spatial:
+        if tta:
+            raise SystemExit("TEST.MULTI_SCALE/FLIP_TEST is a single-device TTA protocol; drop "
+                             "--spatial or disable the TTA flags")
+        common.check_spatial_family(common.build_spec(cfg))
+        mesh, dev, joined = _spatial_mesh(args.spatial, dev)
+        try:
+            return _evaluate(args, cfg, dev, tta, mesh)
+        finally:
+            if joined:
+                dist.destroy_process_group()
+    return _evaluate(args, cfg, dev, tta, None)
+
+
+def _evaluate(args, cfg, dev, tta: bool, mesh):
+    data_devices = None if tta or mesh is not None else _data_devices(cfg.DEVICES, dev)
+    rank = 0 if mesh is None else mesh.rank
+    logger, final_output_dir, _ = create_logger(cfg, args.cfg, "test", rank=rank)
     logger.info("%s", cfg)
 
     spec = common.build_spec(cfg, augment=True)
@@ -117,12 +162,15 @@ def main(argv=None):
         if data_devices:
             logger.info("=> data-parallel eval over %d devices", len(data_devices))
             kw = {"data_devices": data_devices}
+        if mesh is not None:
+            logger.info("=> spatial partitioning: H over %d devices", mesh.n_spatial)
+            kw = {"spatial_mesh": mesh}
     infer = make(cfg, spec, sd, folded=args.fold_bn, compute_dtype=compute_dtype, device=dev,
                  **kw)
 
     if "test" in cfg.DATASET.TEST_SET and "city" in cfg.DATASET.DATASET:
         engine.test(cfg, test_dataset, testloader, infer, sv_dir=final_output_dir,
-                    batch_pad=batch_pad)
+                    sv_pred=rank == 0, batch_pad=batch_pad)
         return None
     mean_iou, iou_array, pixel_acc, mean_acc = engine.testval(
         cfg, test_dataset, testloader, infer, sv_dir=final_output_dir, batch_pad=batch_pad)

@@ -4,6 +4,7 @@ tools/train.py UX on one device or, data-parallel, one process per device:
     python -m pidnet_tpu_torch.tools.train --cfg configs/cityscapes/pidnet_small_cityscapes.yaml \
         [--device cpu] [--seed N] [KEY VALUE ...]
     torchrun --nproc-per-node N -m pidnet_tpu_torch.tools.train --multihost --cfg ... [KEY VALUE]
+    torchrun --nproc-per-node N -m pidnet_tpu_torch.tools.train --multihost --spatial S --cfg ...
 
 Each epoch trains through `engine.train_one_epoch`, validates (every 5
 epochs until the last 100, then every epoch, and right after a resume) and
@@ -26,8 +27,18 @@ val list over the ranks one sample each. XLA.SYNC_BN takes BN statistics
 over the global batch (not with TRAIN.ACCUM_STEPS > 1). Only rank 0 logs,
 writes TensorBoard and the checkpoints; every rank reads a resume
 checkpoint. A SIGTERM stops the rank that receives it: every rank must
-receive it, as in the JAX package. --spatial is not ported; XLA.PAD_BATCH,
-a TPU layout device, is ignored.
+receive it, as in the JAX package. XLA.PAD_BATCH, a TPU layout device, is
+ignored.
+
+--spatial S (parallel/spatial.py) shards each image's H rows over S ranks:
+the processes form a (processes / S, S) mesh, S must divide them, and the
+global batch is TRAIN.BATCH_SIZE_PER_GPU x processes / S. The S ranks of a
+spatial row load the same samples (the loader's shard is the data row,
+rank // S) and the steps are make_spatial_train_step and
+make_spatial_eval_step: global BN statistics and one global OHEM pool of
+LOSS.OHEMKEEP x processes / S pixels, for training and validation. It
+refuses TRAIN.ACCUM_STEPS > 1, and DDRNet-23 and BiSeNetV1 (ROADMAP.md
+Queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -47,9 +58,11 @@ from pidnet_tpu_torch.data import Loader, build_dataset
 from pidnet_tpu_torch.losses.criterion import FullLoss
 from pidnet_tpu_torch.models import pidnet as M
 from pidnet_tpu_torch.parallel.mesh import init_process_group, make_mesh, shard_microbatches
+from pidnet_tpu_torch.parallel.spatial import SpatialMesh, make_mesh_2d
 from pidnet_tpu_torch.tools import common
 from pidnet_tpu_torch.train import checkpoint as ckpt
-from pidnet_tpu_torch.train.step import TrainState, make_eval_step, make_train_step
+from pidnet_tpu_torch.train.step import (TrainState, make_eval_step, make_spatial_eval_step,
+                                         make_spatial_train_step, make_train_step)
 from pidnet_tpu_torch.utils.logging import TBWriter, create_logger
 
 TRACE_FILE = "train_first_epoch.json"
@@ -66,7 +79,8 @@ def parse_args(argv=None):
                         help="data-parallel training, one process per device: join the process "
                         "group from torchrun's environment")
     parser.add_argument("--spatial", type=int, default=0, metavar="N",
-                        help="H-sharding over N devices: not ported (ROADMAP.md Queue 1 item 6)")
+                        help="shard each image's H rows over N devices (parallel/spatial.py); N "
+                        "must divide the process count")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     return parser.parse_args(argv)
@@ -102,9 +116,15 @@ def build_data(cfg, seed: int, num_shards: int = 1, shard_index: int = 0):
 
 def _check_request(args, cfg) -> int:
     """Refuses what cannot run as asked; returns TRAIN.ACCUM_STEPS."""
-    if args.spatial:
-        raise NotImplementedError("--spatial is not ported yet (ROADMAP.md Queue 1 item 6)")
     accum = int(cfg.TRAIN.ACCUM_STEPS)
+    if args.spatial < 0:
+        raise ValueError(f"--spatial must be >= 1, got {args.spatial}")
+    if args.spatial:
+        common.check_spatial_family(common.build_spec(cfg))
+        if accum > 1:
+            # the spatial step is one global-batch program (global OHEM pool,
+            # global BN statistics): sequential virtual shards do not compose
+            raise RuntimeError("TRAIN.ACCUM_STEPS > 1 does not compose with --spatial")
     if accum < 1:
         raise RuntimeError(f"TRAIN.ACCUM_STEPS must be >= 1, got {accum}")
     if accum > 1 and cfg.XLA.SYNC_BN:
@@ -132,11 +152,13 @@ def _join(args):
     return dev, True
 
 
-def _mesh(cfg, dev, multihost: bool):
+def _mesh(cfg, dev, multihost: bool, spatial: int = 0):
     """The data mesh, one device per process: DEVICES -1 or 0 (every
     process) or the process count. Anything else raises, naming torchrun,
     and so does DEVICES -1 or 0 in one process on a machine with several
-    cards, which would train on one of them."""
+    cards, which would train on one of them. With `spatial` S, the
+    (processes / S, S) mesh (`parallel.spatial.make_mesh_2d`); S must
+    divide the process count."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     launch = ("start one process per card with torchrun --nproc-per-node N -m "
               "pidnet_tpu_torch.tools.train --multihost ...")
@@ -147,6 +169,11 @@ def _mesh(cfg, dev, multihost: bool):
             and torch.cuda.device_count() > 1):
         raise RuntimeError(f"DEVICES {cfg.DEVICES} asks for all {torch.cuda.device_count()} "
                            f"cards, one process trains on one: {launch}, or set DEVICES 1")
+    if spatial:
+        if world % spatial:
+            raise RuntimeError(f"--spatial {spatial} must divide the process count {world}: "
+                               f"{launch}")
+        return make_mesh_2d(world // spatial, spatial, dev)
     return make_mesh(cfg.DEVICES, dev)
 
 
@@ -199,7 +226,7 @@ def _train(args, should_stop) -> None:
     accum = _check_request(args, cfg)
     dev, joined = _join(args)
     try:
-        _train_on(args, cfg, accum, _mesh(cfg, dev, args.multihost), should_stop)
+        _train_on(args, cfg, accum, _mesh(cfg, dev, args.multihost, args.spatial), should_stop)
     finally:
         if joined:
             dist.destroy_process_group()
@@ -215,32 +242,48 @@ def _train_on(args, cfg, accum: int, mesh, should_stop) -> None:
     torch.manual_seed(seed)
     writer_dict = {"writer": TBWriter(tb_log_dir) if primary else None, "train_global_steps": 0,
                    "valid_global_steps": 0}
-    logger.info("training on %s: data mesh over %d device(s), backend %s", dev, mesh.size,
-                mesh.backend)
+    spatial = isinstance(mesh, SpatialMesh)
+    if spatial:
+        logger.info("training on %s: (%d data, %d spatial) mesh, H sharded, backend %s", dev,
+                    mesh.n_data, mesh.n_spatial, mesh.backend)
+    else:
+        logger.info("training on %s: data mesh over %d device(s), backend %s", dev, mesh.size,
+                    mesh.backend)
     if args.multihost and mesh.size == 1:
         logger.info("--multihost with a single process; continuing single-host")
 
     spec = common.build_spec(cfg, augment=True)
     sd = common.maybe_load_pretrained(cfg, common.init_model(cfg, spec, seed=seed))
     ts = TrainState.create(M.build(spec, sd, device=dev, train=True))
-    train_dataset, trainloader, testloader = build_data(cfg, seed, mesh.size, mesh.rank)
+    # under --spatial the S ranks of a spatial row read the same samples: the
+    # loader's shard is the data row
+    n_data, shard = (mesh.n_data, mesh.data_index) if spatial else (mesh.size, mesh.rank)
+    train_dataset, trainloader, testloader = build_data(cfg, seed, n_data, shard)
+    # the spatial steps are one global program with one OHEM pool: its
+    # budget is the per-replica OHEMKEEP x the data rows, for validation too
     loss_fn = FullLoss(
         num_outputs=cfg.MODEL.NUM_OUTPUTS, align_corners=cfg.MODEL.ALIGN_CORNERS,
         ignore_label=cfg.TRAIN.IGNORE_LABEL, class_weights=train_dataset.class_weights,
-        use_ohem=cfg.LOSS.USE_OHEM, ohem_thres=cfg.LOSS.OHEMTHRES, ohem_kept=cfg.LOSS.OHEMKEEP,
+        use_ohem=cfg.LOSS.USE_OHEM, ohem_thres=cfg.LOSS.OHEMTHRES,
+        ohem_kept=cfg.LOSS.OHEMKEEP * (n_data if spatial else 1),
         balance_weights=cfg.LOSS.BALANCE_WEIGHTS, sb_weights=cfg.LOSS.SB_WEIGHTS)
-    train_step = make_train_step(
-        ts, loss_fn, mesh, momentum=cfg.TRAIN.MOMENTUM, weight_decay=cfg.TRAIN.WD,
-        nesterov=cfg.TRAIN.NESTEROV, compute_dtype=torch.bfloat16 if cfg.XLA.BF16_TRAIN else None,
-        sync_bn=bool(cfg.XLA.SYNC_BN), accum_steps=accum)
+    sgd = dict(momentum=cfg.TRAIN.MOMENTUM, weight_decay=cfg.TRAIN.WD,
+               nesterov=cfg.TRAIN.NESTEROV,
+               compute_dtype=torch.bfloat16 if cfg.XLA.BF16_TRAIN else None)
+    if spatial:
+        train_step = make_spatial_train_step(ts, loss_fn, mesh, **sgd)
+    else:
+        train_step = make_train_step(ts, loss_fn, mesh, sync_bn=bool(cfg.XLA.SYNC_BN),
+                                     accum_steps=accum, **sgd)
     place_batch = None
     if accum > 1:
         batch = cfg.TRAIN.BATCH_SIZE_PER_GPU * mesh.size * accum
         logger.info("gradient accumulation: %d microbatches of %d = global batch %d", accum,
                     batch // accum, batch)
         place_batch = lambda *arrays: shard_microbatches(mesh, accum, *arrays)  # noqa: E731
-    eval_step = make_eval_step(ts.model, loss_fn, mesh, num_classes=cfg.DATASET.NUM_CLASSES,
-                               compute_dtype=torch.bfloat16 if cfg.XLA.BF16_EVAL else None)
+    make_eval = make_spatial_eval_step if spatial else make_eval_step
+    eval_step = make_eval(ts.model, loss_fn, mesh, num_classes=cfg.DATASET.NUM_CLASSES,
+                          compute_dtype=torch.bfloat16 if cfg.XLA.BF16_EVAL else None)
 
     epoch_iters = len(trainloader)
     best_miou, last_epoch, resume_iter = 0.0, 0, 0

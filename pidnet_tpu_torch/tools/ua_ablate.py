@@ -75,15 +75,15 @@ def run(seed: int = 1) -> dict:
     """{variant: (device ms, event-window ms)} at the main shape on the
     current CUDA device, from seeded logits."""
     fns = ce_bwd_ablate.build_variants(VARIANTS, TOOL, "upsample_argmax_bf16", n_ptrs=2,
-                                       source=SOURCE, n_ints=12)
+                                       source=SOURCE, n_ints=16)
     n, h, w, c = SHAPE
     oh, ow = OUT_HW
     rng = np.random.default_rng(seed)
     x = torch.from_numpy((rng.standard_normal(SHAPE) * 2).astype(np.float32)).cuda().bfloat16()
     out = torch.empty((n, oh, ow), dtype=torch.int32, device="cuda")
     plan = ua.plan(n, h, w, c, oh, ow, True)
-    args = (x.data_ptr(), out.data_ptr(), n, h, w, c, oh, ow, 1, plan.band, plan.tile, plan.lpp,
-            plan.window, plan.threads, torch.cuda.current_stream().cuda_stream)
+    args = (x.data_ptr(), out.data_ptr(), n, h, w, c, oh, ow, h, 0, oh, 0, 1, plan.band, plan.tile,
+            plan.lpp, plan.window, plan.threads, torch.cuda.current_stream().cuda_stream)
     window = ce_bwd_ablate.time_variants(fns, args, TOOL)
     device = ce_bwd_ablate.device_times(fns, args, "upsample_argmax_kernel")
     return {name: (device[name], window[name]) for name in fns}

@@ -13,6 +13,15 @@ pidnet_tpu/train/step.py), on one device or over a data mesh
   shards, each from the step's initial BN state, and averages them as the
   mesh does, so one device takes the global batch of A devices.
 
+Over a (data, spatial) mesh (parallel/spatial.py) `make_spatial_train_step`
+and `make_spatial_eval_step` run the JAX package's global-batch program on
+each rank's H rows: the model under `models.pidnet.spatial_sharding`
+(global BN statistics) and FullLoss over the mesh (global denominators and
+OHEM pool). There a rank's loss is its contribution to the one global
+loss, so the gradients, and the metrics, are SUMMED over the mesh in one
+flat bucket (`Mesh.all_reduce_sums`), where the data step averages its
+replicas', each rank's own mean loss (`Mesh.all_reduce_mean`).
+
 The update is the JAX package's `_sgd`, torch.optim.SGD's semantics as the
 reference configures it (tools/train.py:139-148): weight decay folded into
 the gradient, a momentum buffer, optional Nesterov. Unlike the JAX step,
@@ -33,9 +42,9 @@ import torch
 from torch import nn
 
 from pidnet_tpu_torch.metrics import confusion_matrix
-from pidnet_tpu_torch.models.pidnet import sync_batch_norm
-from pidnet_tpu_torch.ops.resize import resize_bilinear
-from pidnet_tpu_torch.ops.upsample_argmax import upsample_argmax
+from pidnet_tpu_torch.models.pidnet import spatial_sharding, sync_batch_norm
+from pidnet_tpu_torch.ops.resize import resize_bilinear, resize_rows
+from pidnet_tpu_torch.ops.upsample_argmax import upsample_argmax, upsample_argmax_rows
 
 
 @dataclass
@@ -210,6 +219,101 @@ def make_eval_step(model: nn.Module, loss_fn, mesh=None, *, num_classes: int,
         cms = torch.stack(cms)
         if mesh is not None:
             mesh.all_reduce_sum(cms)
+        return metrics, cms
+
+    return step
+
+
+def make_spatial_train_step(ts: TrainState, loss_fn, mesh, *, momentum: float = 0.9,
+                            weight_decay: float = 0.0005, nesterov: bool = False,
+                            compute_dtype: torch.dtype | None = None):
+    """`step(images, labels, edges, lr) -> metrics` on `ts`, in place, over
+    a (data, spatial) mesh (`parallel.spatial.make_mesh_2d`): the JAX
+    package's `make_spatial_train_step`.
+
+    The inputs are this rank's rows of its data row's samples
+    (`parallel.spatial.shard_rows`). The model runs under
+    `spatial_sharding` (halo exchanges, global BN statistics, the 1/64
+    stage on the gathered map) and `loss_fn` (FullLoss) over the mesh, so
+    each rank's loss is its contribution to the global loss. One flat
+    bucket sums the gradients and the metrics over the mesh (the metrics
+    are then the global values); the BN running statistics come out the
+    same on every rank. The update is `_sgd`. With `compute_dtype` the
+    images are cast to it, as in `make_train_step`."""
+    names = [k for k, _ in ts.model.named_parameters()]
+    params = [p for _, p in ts.model.named_parameters()]
+    bufs = [ts.momentum[k] for k in names]
+
+    def step(images, labels, edges, lr: float) -> dict:
+        ts.model.train()
+        x = images if compute_dtype is None else images.to(compute_dtype)
+        with spatial_sharding(ts.model, mesh):
+            loss, metrics = loss_fn(ts.model(x), labels, edges, mesh=mesh)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        keys = list(metrics)
+        out = mesh.world.all_reduce_sums([*grads, *(metrics[k].detach().float() for k in keys)])
+        _sgd(params, out[:len(grads)], bufs, lr, momentum, weight_decay, nesterov)
+        return dict(zip(keys, out[len(grads):]))
+
+    return step
+
+
+def make_spatial_eval_step(model: nn.Module, loss_fn, mesh, *, num_classes: int,
+                           compute_dtype: torch.dtype | None = None):
+    """`step(images, labels, edges, sample_mask) -> (metrics, cms)` over a
+    (data, spatial) mesh: the JAX package's `make_spatial_eval_step`, the
+    contract of `make_eval_step`. The inputs are this rank's rows of its
+    data row's samples, the mask whole (`parallel.spatial.shard_rows`).
+
+    The model runs under `spatial_sharding` and FullLoss over the mesh;
+    `metrics` are the global batch's (the sums of the ranks'
+    contributions), `metrics["weight"]` the global real-sample count. `cms`
+    (num_segmentation_outputs, C, C) int64 is the sum over the mesh of each
+    rank's matrices over its label rows, masked samples all-ignore; each
+    head's class map over the rank's rows is the windowed K1
+    (`upsample_argmax_rows`) when `compute_dtype` is bf16, else the
+    windowed fp32 resize and argmax, as `make_eval_step` chooses. Runs
+    under `torch.inference_mode()`."""
+    dev = mesh.device
+    ignore = loss_fn.ignore_label
+    align = loss_fn.align_corners
+
+    def tensor(a, dtype):
+        a = a if torch.is_tensor(a) else torch.as_tensor(a)
+        return a.to(dev, dtype)
+
+    @torch.inference_mode()
+    def step(images, labels, edges, sample_mask):
+        model.eval()
+        images, edges = tensor(images, torch.float32), tensor(edges, torch.float32)
+        labels, mask = tensor(labels, torch.int32), tensor(sample_mask, torch.float32)
+        x = images if compute_dtype is None else images.to(compute_dtype)
+        hw = (labels.shape[1], labels.shape[2])
+        with spatial_sharding(model, mesh):
+            outputs = model(x)
+        # the heads' halo rows, exchanged once for the loss and the matrices
+        heads = loss_fn.halo_heads(outputs, hw[0], mesh)
+        _, metrics = loss_fn(outputs, labels, edges, sample_mask=mask, mesh=mesh, heads=heads)
+        labels = torch.where(mask.reshape(-1, 1, 1) > 0, labels, ignore)
+        cms = []
+        for o, (oh, rows) in zip(outputs[:-1], heads[:-1]):
+            if compute_dtype == torch.bfloat16:
+                seg = upsample_argmax_rows(oh.contiguous(), hw, align, rows)
+            elif rows is None:
+                seg = resize_bilinear(o, hw, align)
+            else:
+                seg = resize_rows(oh.permute(0, 3, 1, 2), hw, align, rows).permute(0, 2, 3, 1)
+            cms.append(confusion_matrix(seg, labels, num_classes, ignore))
+        # the S ranks of a data row hold the same samples: one counts them
+        w = mask.sum() if mesh.spatial_index == 0 else torch.zeros((), device=dev)
+        keys = list(metrics)
+        sums = torch.stack([metrics[k].float() for k in keys] + [w])
+        mesh.world.all_reduce_sum(sums)
+        metrics = {k: sums[i] for i, k in enumerate(keys)}
+        metrics["weight"] = sums[-1]
+        cms = torch.stack(cms)
+        mesh.world.all_reduce_sum(cms)
         return metrics, cms
 
     return step

@@ -437,7 +437,8 @@ def test_train_resume_after_sigterm_is_bit_exact(tree, full_run, monkeypatch):
 
 REJECTIONS = [  # (flags, KEY VALUE opts, what the run must do)
     (["--multihost"], [], (RuntimeError, "torchrun")),  # no torchrun environment
-    (["--spatial", "2"], [], (NotImplementedError, "item 6")),
+    # item 6, ported: one process cannot hold two spatial ranks
+    (["--spatial", "2"], [], (RuntimeError, "must divide the process count 1.*torchrun")),
     ([], ["DEVICES", "2"], (RuntimeError, "torchrun")),  # one process, two devices
     ([], ["TRAIN.ACCUM_STEPS", "2"], "accum_steps=2"),  # item 5, ported
     ([], ["MODEL.NAME", "ddrnet_23"], "DDRNet"),  # item 7, ported
@@ -451,11 +452,11 @@ class _Built(Exception):
 @pytest.mark.parametrize("flags, opts, want", REJECTIONS,
                          ids=["multihost", "spatial", "devices", "accum", "ddrnet"])
 def test_train_rejects_what_is_not_ported(tree, tmp_path, flags, opts, want, monkeypatch):
-    """What the port cannot run as asked raises: --spatial naming its
-    ROADMAP item, and a data-parallel request that one process cannot meet
-    (--multihost without torchrun's environment, DEVICES 2) naming
-    torchrun. The names predate the ports of items 5 and 7: the `accum`
-    case now builds an accumulating train step and the `ddrnet` case a
+    """What the port cannot run as asked raises: a data-parallel or spatial
+    request that one process cannot meet (--multihost without torchrun's
+    environment, --spatial 2, DEVICES 2) naming torchrun. The names predate
+    the ports of items 5, 6 and 7: `spatial` once raised naming item 6, the
+    `accum` case now builds an accumulating train step and the `ddrnet` case a
     DDRNet."""
     for key in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(key, raising=False)
@@ -616,15 +617,18 @@ def test_eval_cli_default_model_file_and_tta(tree, tmp_path, full_run):
     assert glob.glob(os.path.join(full_run, "tiny_*_test.log"))
 
 
-@pytest.mark.parametrize("flags, opts, item", [(["--spatial", "2"], [], "item 6"),
+@pytest.mark.parametrize("flags, opts, item", [(["--spatial", "2"], [], "torchrun"),
                                                ([], ["DEVICES", "4"], None)],
                          ids=["spatial", "devices"])
-def test_eval_rejects_what_is_not_ported(tree, tmp_path, flags, opts, item):
-    """--spatial raises naming its ROADMAP item. The `devices` case, refused
-    until item 5 was ported, now evaluates over 4 CPU replicas and gives
-    the one-device run's scores."""
+def test_eval_rejects_what_is_not_ported(tree, tmp_path, flags, opts, item, monkeypatch):
+    """--spatial 2 in one process without torchrun's environment raises
+    naming torchrun (it raised naming item 6 until that was ported). The
+    `devices` case, refused until item 5 was ported, now evaluates over 4
+    CPU replicas and gives the one-device run's scores."""
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+        for key in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(key, raising=False)
+        with pytest.raises(RuntimeError, match=item):
             eval_tool.main(_argv(tree, tmp_path, *opts, flags=flags))
         return
     got = eval_tool.main(_argv(tree, tmp_path, "TEST.MODEL_FILE", WEIGHTS, *opts, flags=flags))

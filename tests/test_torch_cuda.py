@@ -245,6 +245,57 @@ def test_ce_front_kernels_match_plain(cuda_device, dtype, align, shape, out_hw):
     assert (a - b).abs().max().item() <= tol * b.abs().max().item()
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("ranks,s", [(2, 0), (2, 1), (4, 0), (4, 1), (4, 3)])
+def test_windowed_kernels_match_windowed_plain(cuda_device, dtype, align, ranks, s):
+    """K1, K2 and K3 over rank s's window of `ranks` spatial ranks
+    (H-sharding: the rank's rows of the logits with their halo, the whole
+    image's taps) against their windowed plain versions, with the gates of
+    the whole image's tests above; the window's launches count in the same
+    counters and in the counts of windowed launches."""
+    from pidnet_tpu_torch.parallel import spatial as SP
+
+    class Rank:
+        n_spatial, spatial_index = ranks, s
+
+    rng = np.random.default_rng(5)
+    (n, h, w, c), out_hw = (2, 16, 32, 19), (128, 256)
+    whole = torch.from_numpy((rng.standard_normal((n, h, w, c)) * 2).astype(np.float32))
+    top, bottom, rows = SP.halo_for_resize(h // ranks, out_hw[0] // ranks, align, Rank, margin=1)
+    padded = torch.nn.functional.pad(whole, (0, 0, 0, 0, h, h))
+    x = padded[:, h + rows.src_start:h + rows.src_start + h // ranks + top + bottom].contiguous()
+    x = x.to(cuda_device, getattr(torch, dtype))
+    hw = (out_hw[0] // ranks, out_hw[1])
+    lab = np.where(rng.random((n, *hw)) < 0.1, 255, rng.integers(0, c, (n, *hw)))
+    labels = torch.from_numpy(lab.astype(np.int32)).to(cuda_device)
+    cw = torch.from_numpy((0.8 + rng.random(c)).astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.random((n, *hw)).astype(np.float32)).to(cuda_device)
+    def counts():
+        return (TU.launches, TC.fwd_launches, TC.bwd_launches, TU.window_launches,
+                TC.fwd_window_launches, TC.bwd_window_launches)
+
+    before = counts()
+    classes = TU.upsample_argmax_rows(x, hw, align, rows)
+    nll, wm = TC.ce_front_fwd(x, labels, cw, 255, hw, align, rows)
+    dl = TC.ce_front_bwd(x, labels, 255, hw, align, g, rows)
+    assert counts() == tuple(b + 1 for b in before)
+    want = TU.upsample_argmax_plain(x, hw, align, rows)
+    top2 = TC._z(x, hw, align, rows).topk(2, dim=-1).values
+    same = classes == want
+    assert same.float().mean().item() >= 0.9999
+    assert not (~same & (top2[..., 0] - top2[..., 1] > 1e-3)).any()
+    xr = x.detach().clone().requires_grad_()
+    nll_p, w_p = TC.ce_front_fwd_plain(xr, labels, cw, 255, hw, align, rows)
+    (dl_p,) = torch.autograd.grad(nll_p, xr, g)
+    torch.cuda.synchronize()
+    assert torch.equal(wm, w_p) and (nll - nll_p).abs().max().item() <= 1e-4
+    a, b = dl.float().flatten(), dl_p.float().flatten()
+    assert (a @ b / (a.norm() * b.norm())).item() > 0.99999
+    tol = 2 ** -7 if dtype == "bfloat16" else 1e-5
+    assert (a - b).abs().max().item() <= tol * b.abs().max().item()
+
+
 def test_ce_front_wrappers_reject_bad_input(cuda_device):
     x = torch.zeros((1, 4, 4, 3), device=cuda_device)
     lab = torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda_device)

@@ -193,9 +193,9 @@ def test_entry_points_default_to_cuda_and_never_fall_back(trained):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import without jax,
-    pidnet_tpu, cv2 or PIL (the card's machine has neither of the last
-    two)."""
+    """Every module of the port (parallel/spatial.py among them), and
+    chip_smoke.py, import without jax, pidnet_tpu, cv2 or PIL (the card's
+    machine has neither of the last two)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import pidnet_tpu_torch, chip_smoke\n"
@@ -204,7 +204,8 @@ def test_port_imports_no_jax():
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'pidnet_tpu', 'cv2', 'PIL')]\n"
         "n = sum(k.startswith('pidnet_tpu_torch') for k in sys.modules)\n"
         "print(n, bad)\n"
-        "sys.exit(1 if bad or n < 15 else 0)\n"
+        "sys.exit(1 if bad or n < 15 or 'pidnet_tpu_torch.parallel.spatial' not in sys.modules\n"
+        "         else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=os.path.abspath(ROOT), env=env,
