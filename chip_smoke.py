@@ -164,9 +164,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    and K3 over windows of output rows (every window of 2 spatial ranks,
    those that (a)-(c) launch, and of 4: both border shards and the
    interior, both align_corners, bf16 and fp32; K1 at serving's and
-   training's shapes) against their windowed plain versions with the
-   kernel phases' gates, and the whole image's window equal to the
-   unwindowed launch.
+   training's shapes, K1-K3 at BiSeNet's scale 1, and K1 at scale 1 with
+   1100 classes, which the direct kernel takes) against their windowed
+   plain versions with the kernel phases' gates, and the whole image's
+   window equal to the unwindowed launch.
    Two gloo ranks sharing cuda:0 as a (1, 2) mesh (parallel/launch.spawn):
    (a) the folded class-map closure (spatial_mesh=) on both frames at
    1x1024x2048, bf16 against the slice phase's maps (>= 0.9995) and fp32
@@ -176,8 +177,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    >= 0.9999, BN state within 1e-5 + 1e-3|x|), 1/2/2 launches a rank, and
    a bf16 step's cosine printed beside two one-device steps' own; (c) the
    fp32 eval step on both frames: matrices with the one-device totals,
-   < 5e-3 of the pixels moved; every launch of the ranks' paths over a
-   window, as the wrappers' counts of windowed launches read it. Each
+   < 5e-3 of the pixels moved. Families, on the same ranks: DDRNet-23 and
+   BiSeNetV1 at their published widths (seeded weights, BN settled on
+   frame 0, as the families phase) against one device: (a) the folded
+   class maps of both frames in bf16 (>= 0.9998 equal where one device's
+   fp32 top-2 margin exceeds 1.0) and fp32 (>= 0.99995 of all pixels), one
+   K1 launch a call (BiSeNet's windowed at scale 1); (b) one
+   fp32 train step at 6x1024x1024 (loss rtol 1e-5, update cosine >
+   0.9999, BN state < 0.5 of 1e-5 + 1e-3|x|), 1/2/2 launches (DDRNet) and
+   1/3/3 (BiSeNet, scale 1), then bf16 steps timed; (c) the fp32 eval
+   step: each matrix's total equal. Every launch of the ranks' paths over
+   a window, as the wrappers' counts of windowed launches read it. Each
    rank's ms a call and a step, peak GiB, and the share of
    a call and of a step spent in collectives (timed between syncs). (d)
    The (1, 1) mesh over a world-1 NCCL group: class maps bit-equal to the
@@ -1215,6 +1225,21 @@ def fp32_final_head(torch, model, x):
         return up.argmax(dim=1).int(), top2[:, 0] - top2[:, 1]
 
 
+def family_weights(torch, name: str, frame, dev) -> tuple:
+    """(spec, unfolded state dict on the CPU) of a family at its published
+    widths, augment: seeded weights whose BN statistics were settled on
+    `frame` (convert.fold.calibrate_bn)."""
+    from pidnet_tpu_torch.convert.fold import calibrate_bn
+    from pidnet_tpu_torch.models import pidnet as M
+    from pidnet_tpu_torch.tools.common import spec_from_name
+
+    spec = spec_from_name(name, 19, augment=True)
+    sd = M.init(spec, torch.Generator().manual_seed(SEED))
+    sd.update({k: v.cpu() for k, v in
+               calibrate_bn(sd, spec, torch.from_numpy(frame).to(dev)).items()})
+    return spec, sd
+
+
 def phase_families(torch, card: str, frames: list, pidnet: dict) -> dict:
     """DDRNet-23 and BiSeNetV1 at their published widths from seeded
     weights whose BN statistics were settled on frame 0 (calibrate_bn):
@@ -1226,10 +1251,8 @@ def phase_families(torch, card: str, frames: list, pidnet: dict) -> dict:
     import dataclasses
 
     from pidnet_tpu_torch import engine
-    from pidnet_tpu_torch.convert.fold import calibrate_bn, fold_state_dict
-    from pidnet_tpu_torch.data.cityscapes import CLASS_WEIGHTS
+    from pidnet_tpu_torch.convert.fold import fold_state_dict
     from pidnet_tpu_torch.data.synthetic import synthetic_epoch
-    from pidnet_tpu_torch.losses.criterion import FullLoss
     from pidnet_tpu_torch.models import pidnet as M
     from pidnet_tpu_torch.ops import ce_front as cf
     from pidnet_tpu_torch.ops import upsample_argmax as ua
@@ -1244,13 +1267,10 @@ def phase_families(torch, card: str, frames: list, pidnet: dict) -> dict:
     rows = []
     for name, (rtol, atol) in FAMILIES.items():
         t_family = time.perf_counter()
-        spec = spec_from_name(name, 19, augment=True)
+        spec, sd = family_weights(torch, name, frames[0], dev)
         balance = M.balance_weights(spec)
         # K1 once a step (pixel accuracy); K2 and K3 once a segmentation head
         per_step = (1, len(balance), len(balance))
-        sd = M.init(spec, torch.Generator().manual_seed(SEED))
-        sd.update({k: v.cpu() for k, v in
-                   calibrate_bn(sd, spec, torch.from_numpy(frames[0]).to(dev)).items()})
         spec1 = dataclasses.replace(spec, augment=False)
         serve = engine.make_inference_classmap(engine.config(), spec1, fold_state_dict(sd, spec1),
                                                folded=True, compute_dtype=torch.bfloat16)
@@ -1299,10 +1319,7 @@ def phase_families(torch, card: str, frames: list, pidnet: dict) -> dict:
         first = next(k for k, _ in ts.model.named_parameters())
         w0 = ts.params()[first].clone()
         stats0 = {k: v.clone() for k, v in ts.state().items()}
-        loss_fn = FullLoss(num_outputs=len(balance), ignore_label=255,
-                           class_weights=CLASS_WEIGHTS, use_ohem=True, ohem_thres=0.9,
-                           ohem_kept=131072, balance_weights=balance, sb_weights=1.0)
-        step = make_train_step(ts, loss_fn, momentum=0.9, weight_decay=5e-4,
+        step = make_train_step(ts, recipe_loss(balance), momentum=0.9, weight_decay=5e-4,
                                compute_dtype=torch.bfloat16)
         history = []
 
@@ -1989,14 +2006,16 @@ PARALLEL_TIMED = 5
 PARALLEL_WORLD = 2
 
 
-def recipe_loss():
+def recipe_loss(balance=(0.4, 1.0)):
     """FullLoss of the reference recipe: OHEM 0.9/131072, Cityscapes class
-    weights, balance weights (0.4, 1.0)."""
+    weights, `balance` weights (models.pidnet.balance_weights: PIDNet's and
+    DDRNet's (0.4, 1.0), BiSeNet's (0.4, 0.4, 1.0))."""
     from pidnet_tpu_torch.data.cityscapes import CLASS_WEIGHTS
     from pidnet_tpu_torch.losses.criterion import FullLoss
 
-    return FullLoss(ignore_label=255, class_weights=CLASS_WEIGHTS, use_ohem=True, ohem_thres=0.9,
-                    ohem_kept=131072, balance_weights=(0.4, 1.0), sb_weights=1.0)
+    return FullLoss(num_outputs=len(balance), ignore_label=255, class_weights=CLASS_WEIGHTS,
+                    use_ohem=True, ohem_thres=0.9, ohem_kept=131072, balance_weights=balance,
+                    sb_weights=1.0)
 
 
 def kernel_counts(reset: bool = False) -> dict:
@@ -2391,13 +2410,17 @@ def phase_parallel(torch, card: str, tree: str, sliced: dict) -> dict:
 # the spatial phase: the windows of the kernel check, the ranks, the crop
 SPATIAL_WORLD = 2
 SPATIAL_TRAIN = (6, 1024)  # a batch of 6 crops of 1024x1024, the reference's crop
-SPATIAL_TIMED = 3
+SPATIAL_CALLS = 10  # timed serving calls a rank
+SPATIAL_TIMED = 3  # timed train steps a rank
 # (logits, output): K1's main shapes (serving's, and training's accuracy)
-# and K2/K3's, each cut into the windows of the spatial phase's
-# SPATIAL_WORLD ranks (the windows its paths launch) and of 4 (both border
-# shards and two interior ones)
+# and K2/K3's, BiSeNet's at scale 1 (K1 serving, K2/K3 training), and K1 at
+# scale 1 with 1100 classes, whose plan is None (the direct kernel over a
+# window; 19 classes keep a plan at scale 1), each cut into the windows of
+# the spatial phase's SPATIAL_WORLD ranks (the windows its paths launch) and
+# of 4 (both border shards and two interior ones)
 WINDOW_CASES = [(KERNEL_CASES[0], "upsample_argmax"), (CE_MAIN, "upsample_argmax"),
-                (CE_MAIN, "ce_front")]
+                (CE_MAIN, "ce_front"), (KERNEL_CASES[-1], "upsample_argmax"),
+                (CE_SCALE1, "ce_front"), (((1, 64, 128, 1100), (64, 128)), "upsample_argmax")]
 WINDOW_RANKS = (SPATIAL_WORLD, 4)
 
 
@@ -2436,6 +2459,7 @@ def phase_windows(torch) -> None:
 
     rng = np.random.default_rng(13)
     worst = {"k1_agree": 1.0, "k2_err": 0.0, "k3_cos": 1.0, "k3_err_of_tol": 0.0}
+    direct = 0  # windows that K1's direct kernel took (its plan None)
     for (shape, out_hw), kind in WINDOW_CASES:
         base, labels, cw, g = ce_inputs(torch, rng, shape, out_hw)
         for dtype in (torch.bfloat16, torch.float32):
@@ -2457,6 +2481,7 @@ def phase_windows(torch) -> None:
                     where = (f"{kind} {tuple(shape)}->{out_hw} {str(dtype)[6:]} "
                              f"align_corners={align} window {s} of {ranks} {tuple(rows)}")
                     if kind == "upsample_argmax":
+                        direct += ua.plan(*x.shape, *hw, align, rows) is None
                         got = ua.upsample_argmax_rows(x, hw, align, rows)
                         again = ua.upsample_argmax_rows(x, hw, align, rows)
                         want = ua.upsample_argmax_plain(x, hw, align, rows)
@@ -2490,7 +2515,9 @@ def phase_windows(torch) -> None:
                           and bits, f"windowed {where}: w exact {torch.equal(w, w_p)}, nll err "
                           f"{e_f:.3e}, dL cos {cos:.8f}, err {e_b:.3e} (<= {tol:.3e}), two "
                           f"launches bit-identical {bits}")
-    print(f"spatial (e): windowed K1, K2, K3 at the main shapes, the windows of "
+    check(direct > 0, "spatial (e): no window went to K1's direct kernel")
+    print(f"spatial (e): windowed K1, K2, K3 at the main shapes and BiSeNet's scale 1 "
+          f"({direct} K1 windows through the direct kernel), the windows of "
           f"{' and of '.join(map(str, WINDOW_RANKS))} ranks each (both border shards and the "
           f"interior), both align_corners, bf16 and fp32, against "
           f"their windowed plain versions: K1 agreement >= {worst['k1_agree']:.6f} (>= 0.9999, "
@@ -2547,48 +2574,35 @@ def host_window(torch, fn, n: int) -> list:
     return times
 
 
-def spatial_rank(rank: int, frames, batch) -> dict:
-    """One of the spatial phase's two gloo ranks, both on cuda:0, a (1, 2)
-    mesh (run by parallel/launch.spawn): (a) the folded class-map closure
-    on both sample frames, bf16 and fp32, its ms a call and peak, and one
-    call with its collectives timed; (b) one fp32 train step (TF32 off) and
-    one bf16 step on `batch`, the bf16 steps' ms and peak, and one step
-    with its collectives timed; (c) the fp32 eval step of the train2k
-    weights on the frames. Launches are counted from 0 before each run and
-    read after it; the rank's sums of them, and of its windowed launches,
-    come back under "launches" and "windowed"."""
-    import torch
+def spatial_run(torch, mesh, spec, serve_sd: dict, train_sd: dict, frames, batch,
+                read) -> dict:
+    """One family (`spec`, augment) on this rank of the (1, 2) mesh: (a)
+    the folded class-map closure of `serve_sd` on both frames, bf16 and
+    fp32, K1 launches a call, SPATIAL_CALLS bf16 calls' ms and peak and one
+    call with its collectives timed; (b) one fp32 train step and one bf16
+    step from `train_sd`, the next SPATIAL_TIMED bf16 steps' ms and peak
+    and one with its collectives timed; (c) the fp32 eval step of
+    `serve_sd` on the
+    frames. `read()` returns the launches since the last reset and adds
+    them to the rank's sums."""
+    import dataclasses
 
     from pidnet_tpu_torch import engine
     from pidnet_tpu_torch.convert.fold import fold_state_dict
-    from pidnet_tpu_torch.convert.weights import load_npz
     from pidnet_tpu_torch.models import pidnet as M
     from pidnet_tpu_torch.parallel import spatial as SP
-    from pidnet_tpu_torch.train.step import make_spatial_eval_step, make_spatial_train_step
+    from pidnet_tpu_torch.train.step import (TrainState, make_spatial_eval_step,
+                                             make_spatial_train_step)
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    mesh = SP.make_mesh_2d(1, SPATIAL_WORLD, dev)
-    out = {"mesh": (mesh.size, mesh.spatial_index, mesh.backend)}
+    dev = mesh.device
     images, labels, edges = frames
-    tally = {"launches": per_step(0, 0, 0), "windowed": per_step(0, 0, 0)}
-
-    def read() -> dict:
-        """The launches since the last reset, added to the rank's sums."""
-        got, windowed = kernel_counts(), window_counts()
-        for k in got:
-            tally["launches"][k] += got[k]
-            tally["windowed"][k] += windowed[k]
-        return got
+    balance = M.balance_weights(spec)
+    out = {}
 
     # (a) serving
-    sd = load_npz(WEIGHTS)
-    plain = M.spec_for("pidnet_s", 19, augment=False)
-    folded = fold_state_dict(sd, plain)
-    cfg = engine.config()
-    serve = {dtype: engine.make_inference_classmap(cfg, plain, folded, folded=True,
+    spec1 = dataclasses.replace(spec, augment=False)
+    folded = fold_state_dict(serve_sd, spec1)
+    serve = {dtype: engine.make_inference_classmap(engine.config(), spec1, folded, folded=True,
                                                    compute_dtype=dtype, spatial_mesh=mesh)
              for dtype in (torch.bfloat16, None)}
     maps, per_call = {}, []
@@ -2602,7 +2616,7 @@ def spatial_rank(rank: int, frames, batch) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernel_counts(reset=True)
-    times = host_window(torch, lambda: serve[torch.bfloat16](x), 10)
+    times = host_window(torch, lambda: serve[torch.bfloat16](x), SPATIAL_CALLS)
     served = read()["upsample_argmax"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     kernel_counts(reset=True)
@@ -2610,46 +2624,220 @@ def spatial_rank(rank: int, frames, batch) -> dict:
     out["serve"] = {"maps": maps, "per_call": per_call, "timed_launches": served, "ms": times,
                     "peak_gib": peak, "timed_ms": call, "collective_ms": spent,
                     "collective_launches": read()["upsample_argmax"]}
+    del serve
 
     # (b) training: an fp32 step (the gates), then bf16
-    spec = M.spec_for("pidnet_s", 19, augment=True)
     share = SP.shard_rows(mesh, *batch)
-    sgd = dict(momentum=0.9, weight_decay=5e-4)
-    steps = {}
     for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
-        ts = seeded_state(torch, spec, dev)
+        ts = TrainState.create(M.build(spec, train_sd, device=dev, train=True))
         p0 = flat_params(torch, ts)
-        step = make_spatial_train_step(ts, recipe_loss(), mesh, compute_dtype=dtype, **sgd)
+        step = make_spatial_train_step(ts, recipe_loss(balance), mesh, compute_dtype=dtype,
+                                       momentum=0.9, weight_decay=5e-4)
         kernel_counts(reset=True)
         loss = float(step(*share, 0.01)["loss"])
         update = flat_params(torch, ts) - p0
-        steps[name] = {"loss": loss, "launches": read(),
-                       "digest": hashlib.sha256(update.cpu().numpy().tobytes()).hexdigest(),
-                       "update": update.cpu().numpy() if rank == 0 else None,
-                       "state": {k: v.cpu().numpy() for k, v in ts.state().items()}}
+        got = {"loss": loss, "launches": read(),
+               "digest": hashlib.sha256(update.cpu().numpy().tobytes()).hexdigest(),
+               "update": update.cpu().numpy() if mesh.spatial_index == 0 else None,
+               "state": {k: v.cpu().numpy() for k, v in ts.state().items()}}
         if name == "bf16":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             kernel_counts(reset=True)
             times = host_window(torch, lambda: float(step(*share, 0.01)["loss"]), SPATIAL_TIMED)
-            steps[name]["timed_launches"] = read()
-            steps[name].update(ms=times, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            got.update(timed_launches=read(), ms=times,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30)
             kernel_counts(reset=True)
             call, spent = collective_share(torch, lambda: float(step(*share, 0.01)["loss"]))
-            steps[name].update(timed_ms=call, collective_ms=spent, collective_launches=read())
+            got.update(timed_ms=call, collective_ms=spent, collective_launches=read())
+        out[name] = got
         del ts, step, p0, update
-    out["train"] = steps
 
     # (c) the eval step, fp32
-    model = M.build(spec, sd, device=dev).to(memory_format=torch.channels_last)
-    evaluate = make_spatial_eval_step(model, recipe_loss(), mesh, num_classes=19)
+    model = M.build(spec, serve_sd, device=dev).to(memory_format=torch.channels_last)
+    evaluate = make_spatial_eval_step(model, recipe_loss(balance), mesh, num_classes=19)
     kernel_counts(reset=True)
     metrics, cms = evaluate(*SP.shard_rows(mesh, images, labels, edges,
                                            np.ones(images.shape[0], np.float32)))
     out["eval"] = {"metrics": {k: float(v) for k, v in metrics.items()},
                    "cms": cms.cpu().numpy(), "launches": read()}
+    del model, evaluate
+    torch.cuda.empty_cache()
+    return out
+
+
+def spatial_rank(rank: int, frames, batch, families: dict) -> dict:
+    """One of the spatial phase's two gloo ranks, both on cuda:0, a (1, 2)
+    mesh (run by parallel/launch.spawn): `spatial_run` of PIDNet-S (served
+    and evaluated with the train2k weights, trained from seeded weights),
+    then of DDRNet-23 and BiSeNetV1 from `families`' weights. Launches
+    are counted from 0 before each run and read after it; the rank's sums
+    of them, and of its windowed launches, come back under "launches" and
+    "windowed"."""
+    import torch
+
+    from pidnet_tpu_torch.convert.weights import load_npz
+    from pidnet_tpu_torch.models import pidnet as M
+    from pidnet_tpu_torch.parallel import spatial as SP
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = SP.make_mesh_2d(1, SPATIAL_WORLD, dev)
+    out = {"mesh": (mesh.size, mesh.spatial_index, mesh.backend)}
+    tally = {"launches": per_step(0, 0, 0), "windowed": per_step(0, 0, 0)}
+
+    def read() -> dict:
+        """The launches since the last reset, added to the rank's sums."""
+        got, windowed = kernel_counts(), window_counts()
+        for k in got:
+            tally["launches"][k] += got[k]
+            tally["windowed"][k] += windowed[k]
+        return got
+
+    spec = M.spec_for("pidnet_s", 19, augment=True)
+    seeded = M.init(spec, torch.Generator().manual_seed(SEED))
+    out["pidnet"] = spatial_run(torch, mesh, spec, load_npz(WEIGHTS), seeded, frames, batch, read)
+    out["families"] = {name: spatial_run(torch, mesh, fspec, sd, sd, frames, batch, read)
+                       for name, (fspec, sd) in families.items()}
     out.update(tally)
     return out
+
+
+# sharded vs one device: fp32 on every pixel; bf16 where one device's fp32
+# top-2 margin exceeds FAMILY_MARGIN (the seeded weights leave half the
+# pixels below it, where bf16's rounding alone flips the class: one
+# device's bf16 against its fp32 agrees on 0.95-0.98 of all pixels)
+FAMILY_MAP_GATES = {"torch.bfloat16": 0.9998, "None": 0.99995}
+FAMILY_MARGIN = 1.0
+
+
+def family_reference(torch, spec, sd: dict, frames, batch, dev) -> dict:
+    """One device's side of `spatial_run` on `dev`: the folded class maps
+    of the frames in bf16 and fp32, one fp32 train step on `batch` (loss,
+    update, BN state) and the fp32 eval step's matrices on the frames."""
+    import dataclasses
+
+    from pidnet_tpu_torch import engine
+    from pidnet_tpu_torch.convert.fold import fold_state_dict
+    from pidnet_tpu_torch.models import pidnet as M
+    from pidnet_tpu_torch.train.step import TrainState, make_eval_step, make_train_step
+
+    images = frames[0]
+    balance = M.balance_weights(spec)
+    spec1 = dataclasses.replace(spec, augment=False)
+    folded = fold_state_dict(sd, spec1)
+    maps = {}
+    for dtype in (torch.bfloat16, None):
+        serve = engine.make_inference_classmap(engine.config(), spec1, folded, folded=True,
+                                               compute_dtype=dtype, device=dev)
+        maps[str(dtype)] = [serve(images[i:i + 1]).cpu().numpy()[0]
+                            for i in range(images.shape[0])]
+    probs = engine.make_inference(engine.config(), spec1, folded, folded=True, device=dev)
+    margins = []
+    for i in range(images.shape[0]):
+        top2 = torch.log(probs(images[i:i + 1])[0]).topk(2, dim=-1).values
+        margins.append((top2[..., 0] - top2[..., 1]).cpu().numpy())
+    del probs
+    ts = TrainState.create(M.build(spec, sd, device=dev, train=True))
+    p0 = flat_params(torch, ts)
+    loss = float(make_train_step(ts, recipe_loss(balance), momentum=0.9, weight_decay=5e-4)(
+        *(torch.from_numpy(a).to(dev) for a in batch), 0.01)["loss"])
+    step = {"loss": loss, "update": (flat_params(torch, ts) - p0).cpu(),
+            "state": {k: v.cpu().numpy() for k, v in ts.state().items()}}
+    del ts, p0
+    model = M.build(spec, sd, device=dev).to(memory_format=torch.channels_last)
+    metrics, cms = make_eval_step(model, recipe_loss(balance), num_classes=19)(
+        *frames, np.ones(images.shape[0], np.float32))
+    del model
+    torch.cuda.empty_cache()
+    return {"maps": maps, "margins": margins, "fp32": step, "cms": cms.cpu().numpy(),
+            "eval_loss": float(metrics["loss"])}
+
+
+def check_family(name: str, heads: int, ranks: list, one: dict, card: str) -> None:
+    """The gates of `spatial_run`'s runs on the ranks against one
+    device's (`family_reference`): (a) class maps >= FAMILY_MAP_GATES of
+    the pixels equal (bf16: of those whose fp32 top-2 margin exceeds
+    FAMILY_MARGIN), the same on both ranks, one K1 launch a call; (b)
+    the fp32 step's loss within rtol 1e-5, update cosine > 0.9999, BN state
+    < 0.5 of 1e-5 + 1e-3|x|, the same on both ranks, 1/heads/heads
+    launches a step; (c) each eval matrix's total equal, 1/heads/0
+    launches. Prints each rank's ms a call and a bf16 step, peak and the
+    collectives' share."""
+    for s, r in enumerate(ranks):
+        sv = r["serve"]
+        agree = {k: [float((m == w).mean()) for m, w in zip(sv["maps"][k], one["maps"][k])]
+                 for k in FAMILY_MAP_GATES}
+        every = agree["torch.bfloat16"]
+        agree["torch.bfloat16"] = [
+            float((m == w)[c > FAMILY_MARGIN].mean())
+            for m, w, c in zip(sv["maps"]["torch.bfloat16"], one["maps"]["torch.bfloat16"],
+                               one["margins"])]
+        share = [float((c > FAMILY_MARGIN).mean()) for c in one["margins"]]
+        print(f"spatial families (a) {name} rank {s}: folded class maps of both frames at "
+              f"1x1024x2048 over (1, {SPATIAL_WORLD}) vs one device: bf16 "
+              f"{agree['torch.bfloat16']} (>= 0.9998) where the fp32 top-2 margin > "
+              f"{FAMILY_MARGIN} ({share} of the pixels), {every} of all pixels; fp32 (TF32 off) "
+              f"{agree['None']} (>= 0.99995); K1 launches a call {sv['per_call']}; "
+              f"{len(sv['ms'])} bf16 calls "
+              f"median {statistics.median(sv['ms']):.2f} ms, peak {sv['peak_gib']:.2f} GiB; a "
+              f"call with its collectives timed {sv['timed_ms']:.2f} ms, of it collectives "
+              f"{sv['collective_ms']:.2f} ms ({sv['collective_ms'] / sv['timed_ms']:.1%}) [{card}]")
+        check(all(min(agree[k]) >= gate for k, gate in FAMILY_MAP_GATES.items()),
+              f"spatial families (a) {name} rank {s}: sharded class maps disagree with one "
+              "device's")
+        check(sv["per_call"] == [1] * len(sv["per_call"])
+              and sv["timed_launches"] == SPATIAL_CALLS + 1 and sv["collective_launches"] == 1,
+              f"spatial families (a) {name} rank {s}: K1 launches {sv['per_call']}, "
+              f"{sv['timed_launches']}, {sv['collective_launches']}")
+    check(all(np.array_equal(a, b) for k in FAMILY_MAP_GATES
+              for a, b in zip(ranks[0]["serve"]["maps"][k], ranks[1]["serve"]["maps"][k])),
+          f"spatial families (a) {name}: the two ranks return different maps")
+
+    r0, r1 = (r["fp32"] for r in ranks)
+    ref = one["fp32"]
+    a, b = np.asarray(r0["update"], np.float64), ref["update"].double().numpy()
+    cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+    worst = max(float(np.max(np.abs(r0["state"][k] - v) / (1e-5 + 1e-3 * np.abs(v))))
+                for k, v in ref["state"].items())
+    rtol = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+    print(f"spatial families (b) {name} fp32, TF32 off, {SPATIAL_TRAIN[0]}x{SPATIAL_TRAIN[1]}x"
+          f"{SPATIAL_TRAIN[1]}: ranks' losses {r0['loss']:.7f}, {r1['loss']:.7f}, updates equal "
+          f"{r0['digest'] == r1['digest']}; one device {ref['loss']:.7f} (rtol {rtol:.2e}, <= "
+          f"1e-5); update cosine {cos:.8f} (> 0.9999); BN state worst |d| / (1e-5 + 1e-3|x|) "
+          f"{worst:.3f} (< 0.5); launches a rank {r0['launches']}, {r1['launches']}")
+    check(r0["loss"] == r1["loss"] and r0["digest"] == r1["digest"] and rtol <= 1e-5
+          and cos > 0.9999 and worst < 0.5, f"spatial families (b) {name}: the sharded fp32 step "
+          "differs from one device's")
+    for s, r in enumerate(ranks):
+        st = r["bf16"]
+        check(r["fp32"]["launches"] == st["launches"] == per_step(1, heads, heads)
+              and st["timed_launches"] == per_step(1, heads, heads, SPATIAL_TIMED + 1)
+              and st["collective_launches"] == per_step(1, heads, heads),
+              f"spatial families (b) {name} rank {s}: launches {r['fp32']['launches']}, "
+              f"{st['launches']}, {st['timed_launches']}, {st['collective_launches']}, want "
+              f"1/{heads}/{heads} a step")
+        print(f"spatial families (b) {name} rank {s} bf16 {SPATIAL_TRAIN[0]}x{SPATIAL_TRAIN[1]}x"
+              f"{SPATIAL_TRAIN[1]} over (1, {SPATIAL_WORLD}), two processes sharing one card: loss "
+              f"{st['loss']:.7f}, median {statistics.median(st['ms']):.2f} ms/step "
+              f"({SPATIAL_TIMED} steps), peak {st['peak_gib']:.2f} GiB; a step with its "
+              f"collectives timed {st['timed_ms']:.2f} ms, of it collectives "
+              f"{st['collective_ms']:.2f} ms ({st['collective_ms'] / st['timed_ms']:.1%}) [{card}]")
+
+    e0, e1 = (r["eval"] for r in ranks)
+    moved = [float(np.abs(a - b).sum() / b.sum()) for a, b in zip(e0["cms"], one["cms"])]
+    print(f"spatial families (c) {name} fp32 eval step over (1, {SPATIAL_WORLD}), both frames: "
+          f"{len(e0['cms'])} matrices, equal on both ranks {np.array_equal(e0['cms'], e1['cms'])}, "
+          f"totals {[int(c.sum()) for c in e0['cms']]} vs one device's "
+          f"{[int(c.sum()) for c in one['cms']]}, cells moved {[f'{m:.2e}' for m in moved]} of "
+          f"the totals; loss {e0['metrics']['loss']:.6f} vs {one['eval_loss']:.6f}; launches a "
+          f"rank {e0['launches']}")
+    check(np.array_equal(e0["cms"], e1["cms"]) and len(e0["cms"]) == len(one["cms"]) == heads
+          and all(int(a.sum()) == int(b.sum()) for a, b in zip(e0["cms"], one["cms"]))
+          and e0["launches"] == per_step(1, heads, 0),
+          f"spatial families (c) {name}: the sharded eval step differs")
 
 
 def phase_spatial(torch, card: str, sliced: dict) -> dict:
@@ -2718,16 +2906,22 @@ def phase_spatial(torch, card: str, sliced: dict) -> dict:
         *frames, np.ones(images.shape[0], np.float32))
     m_one = {k: float(v) for k, v in m_one.items()}
     cms_one = cms_one.cpu().numpy()
+    del model
     torch.cuda.empty_cache()
+    families = {name: family_weights(torch, name, images[:1], dev) for name in FAMILIES}
+    fam_one = {name: family_reference(torch, fspec, fsd, frames, batch, dev)
+               for name, (fspec, fsd) in families.items()}
 
     # (a)-(c) two gloo ranks sharing cuda:0
     t0 = time.perf_counter()
-    ranks = spawn(spatial_rank, SPATIAL_WORLD, frames, batch, backend="gloo", timeout=600)
+    ranks = spawn(spatial_rank, SPATIAL_WORLD, frames, batch, families, backend="gloo",
+                  timeout=900)
     print(f"spatial: {SPATIAL_WORLD} gloo ranks on cuda:0 as a (1, {SPATIAL_WORLD}) mesh in "
           f"{time.perf_counter() - t0:.1f} s host, spawn and CUDA start included")
     check([r["mesh"] for r in ranks] == [(SPATIAL_WORLD, s, "gloo") for s in range(SPATIAL_WORLD)],
           f"spatial: the ranks' meshes {[r['mesh'] for r in ranks]}")
-    for s, r in enumerate(ranks):
+    pid = [r["pidnet"] for r in ranks]
+    for s, r in enumerate(pid):
         sv = r["serve"]
         agree = [float((m == w).mean()) for m, w in zip(sv["maps"]["torch.bfloat16"],
                                                          sliced["maps"])]
@@ -2742,14 +2936,15 @@ def phase_spatial(torch, card: str, sliced: dict) -> dict:
               f"({sv['collective_ms'] / sv['timed_ms']:.1%}) [{card}]")
         check(min(agree) >= 0.9995 and min(agree32) >= 0.9999,
               f"spatial (a) rank {s}: sharded class maps disagree with one device's")
-        check(sv["per_call"] == [1] * len(sv["per_call"]) and sv["timed_launches"] == 11
+        check(sv["per_call"] == [1] * len(sv["per_call"])
+              and sv["timed_launches"] == SPATIAL_CALLS + 1
               and sv["collective_launches"] == 1, f"spatial (a) rank {s}: K1 launches "
               f"{sv['per_call']}, {sv['timed_launches']}, {sv['collective_launches']}")
-    check(all(np.array_equal(a, b) for a, b in zip(ranks[0]["serve"]["maps"]["torch.bfloat16"],
-                                                    ranks[1]["serve"]["maps"]["torch.bfloat16"])),
+    check(all(np.array_equal(a, b) for a, b in zip(pid[0]["serve"]["maps"]["torch.bfloat16"],
+                                                    pid[1]["serve"]["maps"]["torch.bfloat16"])),
           "spatial (a): the two ranks return different maps")
 
-    r0, r1 = (r["train"]["fp32"] for r in ranks)
+    r0, r1 = (r["fp32"] for r in pid)
     ref = one["fp32"]
     cos = cosine(r0["update"], ref["update"])
     worst = max(float(np.max(np.abs(r0["state"][k] - v) / (1e-5 + 1e-3 * np.abs(v))))
@@ -2762,19 +2957,19 @@ def phase_spatial(torch, card: str, sliced: dict) -> dict:
           f"{worst:.3f} (<= 1); launches a rank {r0['launches']}, {r1['launches']}")
     check(r0["loss"] == r1["loss"] and r0["digest"] == r1["digest"] and rtol <= 1e-4
           and cos >= 0.9999 and worst <= 1.0, "spatial (b): the sharded fp32 step differs")
-    b0, b1 = ranks[0]["train"]["bf16"], one["bf16"]
+    b0, b1 = pid[0]["bf16"], one["bf16"]
     cos16 = cosine(b0["update"], b1["update"])
     floor = cosine(one["bf16 again"]["update"], b1["update"])
     print(f"spatial (b) bf16, the recipe: loss {b0['loss']:.7f} vs one device's "
           f"{b1['loss']:.7f} (rtol {abs(b0['loss'] - b1['loss']) / abs(b1['loss']):.2e}); update "
           f"cosine {cos16:.8f} beside two one-device steps' {floor:.8f} (the bf16 backward's "
           f"noise floor; not gated)")
-    for s, r in enumerate(ranks):
+    for s, r in enumerate(pid):
         for name in ("fp32", "bf16"):
-            st = r["train"][name]
+            st = r[name]
             check(st["launches"] == per_step(1, 2, 2), f"spatial (b) rank {s} {name}: launches "
                   f"{st['launches']}, want 1/2/2")
-        st = r["train"]["bf16"]
+        st = r["bf16"]
         check(st["timed_launches"] == per_step(1, 2, 2, SPATIAL_TIMED + 1)
               and st["collective_launches"] == per_step(1, 2, 2),
               f"spatial (b) rank {s}: timed launches {st['timed_launches']}, "
@@ -2786,7 +2981,7 @@ def phase_spatial(torch, card: str, sliced: dict) -> dict:
               f"ms, of it collectives {st['collective_ms']:.2f} ms "
               f"({st['collective_ms'] / st['timed_ms']:.1%}) [{card}]")
 
-    e0, e1 = (r["eval"] for r in ranks)
+    e0, e1 = (r["eval"] for r in pid)
     moved = float(np.abs(e0["cms"][-1] - cms_one[-1]).sum() / cms_one[-1].sum())
     print(f"spatial (c) fp32 eval step over (1, {SPATIAL_WORLD}), both frames: matrices equal on "
           f"both ranks {np.array_equal(e0['cms'], e1['cms'])}, totals {int(e0['cms'][-1].sum())} "
@@ -2798,6 +2993,9 @@ def phase_spatial(torch, card: str, sliced: dict) -> dict:
           and all(float(np.abs(a - b).sum() / b.sum()) < 5e-3 for a, b in zip(e0["cms"], cms_one))
           and e0["metrics"]["weight"] == m_one["weight"] == images.shape[0]
           and e0["launches"] == per_step(1, 2, 0), "spatial (c): the sharded eval step differs")
+    for name, (fspec, _) in families.items():
+        check_family(name, M.module_for(fspec).seg_heads, [r["families"][name] for r in ranks],
+                     fam_one[name], card)
     # every launch that a rank's paths made, as its counters read them
     for r in ranks:
         add(r["launches"])
@@ -2806,7 +3004,6 @@ def phase_spatial(torch, card: str, sliced: dict) -> dict:
     check(all(r["windowed"] == r["launches"] for r in ranks),
           f"spatial: a launch on a rank's path was not windowed: "
           f"{[(r['launches'], r['windowed']) for r in ranks]}")
-    del model
     torch.cuda.empty_cache()
 
     # (d) the (1, 1) mesh over a world-1 NCCL group

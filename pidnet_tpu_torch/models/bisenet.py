@@ -20,6 +20,12 @@ gates the result.
 - `augment=True` returns `[out16, out32, out, outd]`: the final head last
   but one and the boundary head last, as FullLoss takes them with three
   balance weights (`seg_heads` 3).
+- Under `models.pidnet.spatial_sharding` the stem's max pool, the three
+  global pools and every resize compute the rank's rows of the whole
+  image's (`parallel.spatial.max_pool_rows`, `global_pool_rows`,
+  `resize_sharded`); the 1x1 convs and BNs after each global pool run on
+  the pooled vector, replicated over the row (`replicated`). There is no
+  1/64 stage and no gather: the 1/32 maps stay sharded.
 """
 
 from __future__ import annotations
@@ -38,9 +44,10 @@ from pidnet_tpu_torch.models.pidnet import (
     Network,
     _norm,
     _paired_norm,
+    _resize,
 )
 from pidnet_tpu_torch.nn.functional import global_avg_pool, max_pool2d, relu, sigmoid
-from pidnet_tpu_torch.ops.resize import interpolate
+from pidnet_tpu_torch.parallel import spatial as SP
 
 
 @dataclass(frozen=True)
@@ -53,6 +60,14 @@ def spec_for(name: str, num_classes: int, augment: bool) -> BiSeNetSpec:
     if "bisenet" not in name:
         raise ValueError(f"{name!r} is not a BiSeNet name")
     return BiSeNetSpec(num_classes=num_classes, augment=augment)
+
+
+def _global_pool(mod: nn.Module, x):
+    """The global average pool of NCHW `x`; under `spatial_sharding`
+    (`mod.spatial` set) the whole image's, from the rank's rows."""
+    if mod.spatial is None:
+        return global_avg_pool(x)
+    return SP.global_pool_rows(x, mod.spatial)
 
 
 class ResNet18(nn.Module):
@@ -71,9 +86,14 @@ class ResNet18(nn.Module):
                       BasicBlock(planes, planes, folded=folded)]
             setattr(self, f"layer{i}", nn.Sequential(*blocks))
             cin = planes
+        self.spatial = None
 
     def forward(self, x):
-        x = max_pool2d(relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        x = relu(self.bn1(self.conv1(x)))
+        if self.spatial is None:
+            x = max_pool2d(x, 3, 2, 1)
+        else:
+            x = SP.max_pool_rows(x, 3, 2, 1, self.spatial)
         feat8 = self.layer2(self.layer1(x))
         feat16 = self.layer3(feat8)
         return feat8, feat16, self.layer4(feat16)
@@ -88,10 +108,11 @@ class ARM(nn.Module):
         self.conv = CBR(cin, cout, 3, folded=folded)
         self.conv_atten = Conv2d(cout, cout, 1)
         self.bn_atten = _norm(cout, folded)
+        self.spatial = None
 
     def forward(self, x):
         feat = self.conv(x)
-        return feat * sigmoid(self.bn_atten(self.conv_atten(global_avg_pool(feat))))
+        return feat * sigmoid(self.bn_atten(self.conv_atten(_global_pool(self, feat))))
 
 
 class FFM(nn.Module):
@@ -103,10 +124,11 @@ class FFM(nn.Module):
         self.convblk = CBR(cin, cout, 1, folded=folded)
         self.conv = Conv2d(cout, cout, 1)
         self.bn = _norm(cout, folded)
+        self.spatial = None
 
     def forward(self, x):
         feat = self.convblk(x)
-        return feat * sigmoid(self.bn(self.conv(global_avg_pool(feat)))) + feat
+        return feat * sigmoid(self.bn(self.conv(_global_pool(self, feat)))) + feat
 
 
 class ContextPath(nn.Module):
@@ -127,19 +149,20 @@ class ContextPath(nn.Module):
         self.convD3 = Bottleneck(64, 64, no_relu=True, **kw)
         self.diff3 = ConvBN(256, 64, 3, **kw)
         self.diff4 = ConvBN(512, 64, 3, **kw)
+        self.spatial = None
 
     def forward(self, x):
         feat8, feat16, feat32 = self.resnet(x)
         hw8 = (feat8.shape[2], feat8.shape[3])
-        avg = self.conv_avg(global_avg_pool(feat32))
+        avg = self.conv_avg(_global_pool(self, feat32))
         feat32_sum = self.arm32(feat32) + avg
-        feat32_up = interpolate(feat32_sum, (feat32.shape[2] * 2, feat32.shape[3] * 2), False)
+        feat32_up = _resize(self, feat32_sum, (feat32.shape[2] * 2, feat32.shape[3] * 2), False)
         feat32_up = self.conv_head32(feat32_up)
         feat16_sum = self.arm16(feat16) + feat32_up
-        feat16_up = interpolate(feat16_sum, (feat16.shape[2] * 2, feat16.shape[3] * 2), False)
+        feat16_up = _resize(self, feat16_sum, (feat16.shape[2] * 2, feat16.shape[3] * 2), False)
         feat16_up = self.conv_head16(feat16_up)
-        feat_d = self.convD1(feat8) + interpolate(self.diff3(feat16), hw8, False)
-        feat_d = self.convD2(relu(feat_d)) + interpolate(self.diff4(feat32), hw8, False)
+        feat_d = self.convD1(feat8) + _resize(self, self.diff3(feat16), hw8, False)
+        feat_d = self.convD2(relu(feat_d)) + _resize(self, self.diff4(feat32), hw8, False)
         feat_d = relu(feat_d)  # the boundary head reads this (in-place ReLU)
         return feat16_up, feat32_up, self.convD3(feat_d), feat_d
 
@@ -164,14 +187,18 @@ class Head(nn.Module):
         self.up = up
         self.conv = CBR(cin, mid, 3, folded=folded)
         self.conv_out = Conv2d(mid, n_out, 1, bias=True)
+        self.spatial = None
 
     def forward(self, x):
         y = self.conv_out(self.conv(x))
-        return interpolate(y, (y.shape[2] * self.up, y.shape[3] * self.up), False)
+        return _resize(self, y, (y.shape[2] * self.up, y.shape[3] * self.up), False)
 
 
 class BiSeNet(Network):
     seg_heads = 3  # out16, out32, out
+    # the 1x1 convs and BNs after each global pool: on the pooled vector
+    replicated = ("cp.conv_avg", "cp.arm16.conv_atten", "cp.arm16.bn_atten",
+                  "cp.arm32.conv_atten", "cp.arm32.bn_atten", "ffm.conv", "ffm.bn")
 
     def __init__(self, spec: BiSeNetSpec, *, folded: bool = False):
         super().__init__()

@@ -14,7 +14,14 @@ Two-branch DDRNet trunk with PIDNet's derivative (boundary) branch:
 - the ReLU is not in place, so the aux heads read the pre-activation
   `temp_p`/`temp_d`;
 - the fusion is `Bag` (the reference's `DFM3` does not exist);
-- `augment=True` returns `[x_extra, out, x_bd]`, NHWC at 1/8 resolution.
+- `augment=True` returns `[x_extra, out, x_bd]`, NHWC at 1/8 resolution;
+- under `models.pidnet.spatial_sharding` it runs as PIDNet does: the 1/32
+  map gathered before layer5 and the DAPPM, their output resized to 8x the
+  1/64 map and scattered back. The JAX forward has no such points, so its
+  GSPMD partitioner splits the DAPPM's pools, which gives wrong gradients
+  on a (2, 2) mesh (scripts/spatial_quirk.py; ROADMAP.md, reference
+  quirks); the gather is a layout choice here, the numerics those of the
+  global program.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from pidnet_tpu_torch.models.pidnet import (
     Stem,
     _layer,
     _paired_norm,
+    _resize,
 )
 from pidnet_tpu_torch.nn.functional import relu
 from pidnet_tpu_torch.ops.resize import interpolate
@@ -72,6 +80,8 @@ class Down4(nn.Sequential):
 
 
 class DDRNet(Network):
+    replicated = ("layer5", "spp")  # the 1/64 stage, on the gathered 1/32 map
+
     def __init__(self, spec: DDRNetSpec, *, folded: bool = False):
         super().__init__()
         self.spec, self.folded = spec, folded
@@ -114,19 +124,22 @@ class DDRNet(Network):
         x_ = self.layer3_(relu(l2))
         x_d = self.layer3_d(relu(l2))
         x = l3 + self.down3(relu(x_))
-        x_ = x_ + interpolate(self.compression3(relu(l3)), hw8, ALGC)
-        x_d = x_d + interpolate(self.diff3(relu(l3)), hw8, ALGC)
+        x_ = x_ + _resize(self, self.compression3(relu(l3)), hw8, ALGC)
+        x_d = x_d + _resize(self, self.diff3(relu(l3)), hw8, ALGC)
         temp_p = x_  # pre-activation: the ReLU is not in place
         l4 = self.layer4(relu(x))
         x_ = self.layer4_(relu(x_))
         x_d = self.layer4_d(relu(x_d))
         x = l4 + self.down4(relu(x_))
-        x_ = x_ + interpolate(self.compression4(relu(l4)), hw8, ALGC)
-        x_d = x_d + interpolate(self.diff4(relu(l4)), hw8, ALGC)
+        x_ = x_ + _resize(self, self.compression4(relu(l4)), hw8, ALGC)
+        x_d = x_d + _resize(self, self.diff4(relu(l4)), hw8, ALGC)
         temp_d = x_d
         x_ = self.layer5_(relu(x_))
         x_d = self.layer5_d(relu(x_d))
-        x = interpolate(self.spp(self.layer5(relu(x))), hw8, ALGC)
+        x = self.spp(self.layer5(self._hint("pre_spp", relu(x))))  # I @1/64
+        # to 8x the 1/64 map, the input's 1/8: under H-sharding the map is the
+        # whole image's and hw8 only a shard's (PIDNet's partitioning points)
+        x = self._hint("post_spp", interpolate(x, (8 * x.shape[2], 8 * x.shape[3]), ALGC))
         out = self.final_layer(self.dfm(x_, x, x_d))
         if self.spec.augment:
             heads = [self.seghead_extra(temp_p), out, self.seghead_bd(temp_d)]

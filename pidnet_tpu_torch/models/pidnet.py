@@ -21,12 +21,13 @@ pidnet_tpu/models/pidnet.py, whose canonical `_forward` this mirrors).
   batch statistics and updates its running buffers in place; a bf16 input
   runs every conv in bf16 on fp32 weights cast at the conv (the JAX
   `compute_dtype=bfloat16` contract);
-- `spatial_sharding(model, mesh)` runs a PIDNet on this rank's H rows of
-  an H-sharded batch (parallel/spatial.py): its k > 1 convs exchange halo
-  rows, its interior resizes compute the rank's rows of the whole image's,
-  its BNs take the global batch's statistics, and `_hint` gathers the 1/32
-  map for layer5 and the PPM ("pre_spp") and scatters their 1/8 output
-  back ("post_spp"), the JAX package's two partitioning points.
+- `spatial_sharding(model, mesh)` runs a network of any family on this
+  rank's H rows of an H-sharded batch (parallel/spatial.py): its k > 1
+  convs exchange halo rows, its interior resizes and pools compute the
+  rank's rows of the whole image's, its BNs take the global batch's
+  statistics, and `_hint` gathers the 1/32 map for layer5 and the PPM
+  ("pre_spp") and scatters their 1/8 output back ("post_spp"), the JAX
+  package's two partitioning points.
 """
 
 from __future__ import annotations
@@ -431,9 +432,23 @@ class Network(nn.Module):
     """A whole network of one family: NHWC image in, NHWC logits out.
     `seg_heads` is the number of segmentation heads an augment model
     returns before its boundary head, which is last: the number of
-    FullLoss balance weights (`balance_weights`)."""
+    FullLoss balance weights (`balance_weights`).
+
+    H-sharding (`spatial_sharding`) reads two declarations of a family:
+    `replicated`, the dotted names of the submodules that run on a map
+    replicated over the S ranks of a spatial row (None: the family does
+    not run H-sharded), and, in each module class that computes across
+    rows other than through a k > 1 conv, a `spatial` attribute."""
 
     seg_heads = 2
+    replicated: tuple[str, ...] | None = None
+    spatial = None
+
+    def _hint(self, name: str, x):
+        """The JAX package's partitioning points, "pre_spp" and "post_spp";
+        identity unless `spatial_sharding` set `spatial`
+        (parallel/spatial.hint)."""
+        return x if self.spatial is None else SP.hint(name, x, self.spatial)
 
     def conv_bn_pairs(self) -> list[tuple[str, str]]:
         """(conv, bn) module names of every conv+BN pair, gathered from
@@ -446,6 +461,8 @@ class Network(nn.Module):
 
 
 class PIDNet(Network):
+    replicated = ("layer5", "spp")  # the 1/64 stage, on the gathered 1/32 map
+
     def __init__(self, spec: PIDNetSpec, *, folded: bool = False):
         super().__init__()
         self.spec, self.folded = spec, folded
@@ -484,13 +501,6 @@ class PIDNet(Network):
             self.seghead_p = SegHead(p * 2, spec.head_planes, spec.num_classes, **kw)
             self.seghead_d = SegHead(p * 2, p, 1, **kw)
         self.final_layer = SegHead(p * 4, spec.head_planes, spec.num_classes, **kw)
-        self.spatial = None
-
-    def _hint(self, name: str, x):
-        """The JAX package's partitioning points, "pre_spp" and "post_spp";
-        identity unless `spatial_sharding` set `spatial`
-        (parallel/spatial.hint)."""
-        return x if self.spatial is None else SP.hint(name, x, self.spatial)
 
     def forward(self, x):
         """NHWC image (N,H,W,3), H and W multiples of 64 -> NHWC logits at
@@ -527,31 +537,34 @@ class PIDNet(Network):
 
 
 @contextlib.contextmanager
-def spatial_sharding(model: nn.Module, mesh):
-    """Inside, `model` (a PIDNet) runs on this rank's H rows of a batch
-    sharded over `mesh` (`parallel.spatial.SpatialMesh`; `shard_rows`
-    places the batch) and returns the rank's rows of the whole batch's
-    heads: each k > 1 conv exchanges its halo rows (`conv_rows`), each
-    interior resize computes the rank's rows of the whole image's
-    (`resize_sharded`), `_hint` gathers the 1/32 map before layer5 and
-    scatters the 1/8 output of the PPM, and each BN in training mode takes
-    the global batch's statistics: over the mesh outside layer5 and the
-    PPM, and inside them, where the S ranks of a row hold the same whole
-    map, with the global pixel count of n_data ranks'. DDRNet-23 and
-    BiSeNetV1 have further gather points and raise NotImplementedError."""
-    if not isinstance(model, PIDNet):
-        raise NotImplementedError(
-            f"H-sharding (--spatial) of {type(model).__name__} is not ported yet (ROADMAP.md "
-            "Queue 1 item 6b): its global pools need gather points of their own")
-    gathered = {id(m) for part in (model.layer5, model.spp) for m in part.modules()}
-    ppm = SP.replicated_sync(mesh)
+def spatial_sharding(model: Network, mesh):
+    """Inside, `model` runs on this rank's H rows of a batch sharded over
+    `mesh` (`parallel.spatial.SpatialMesh`; `shard_rows` places the batch)
+    and returns the rank's rows of the whole batch's heads: each k > 1 conv
+    exchanges its halo rows (`conv_rows`), and each module that carries a
+    `spatial` attribute (its resizes, pools and partitioning points) takes
+    the mesh: a resize computes the rank's rows of the whole image's
+    (`resize_sharded`), a max pool its rows (`max_pool_rows`), a global
+    pool the whole image's (`global_pool_rows`), and `_hint` gathers the
+    1/32 map before the 1/64 stage and scatters its 1/8 output. Each BN in
+    training mode takes the global batch's statistics: over the mesh
+    outside the family's `replicated` submodules, and inside them, where
+    the S ranks of a row hold the same map, with the global count of
+    n_data ranks' (`parallel.spatial.replicated_sync`). A network that
+    declares no `replicated` parts raises TypeError: it never runs
+    unsharded."""
+    if getattr(model, "replicated", None) is None:
+        raise TypeError(f"{type(model).__name__} declares no spatial parts (Network.replicated): "
+                        "it cannot run H-sharded")
+    gathered = {id(m) for name in model.replicated for m in model.get_submodule(name).modules()}
+    replicated = SP.replicated_sync(mesh)
     touched = []
     for m in model.modules():
         inside = id(m) in gathered
         if isinstance(m, BatchNorm):
-            m.sync = ppm if inside else mesh.world
-        elif (isinstance(m, (PagFM, PIDNet))
-              or (isinstance(m, Conv2d) and not inside and m.weight.shape[-1] > 1)):
+            m.sync = replicated if inside else mesh.world
+        elif (hasattr(m, "spatial") and not inside
+              and not (isinstance(m, Conv2d) and m.weight.shape[-1] == 1)):
             m.spatial = mesh
         else:
             continue

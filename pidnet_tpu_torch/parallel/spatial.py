@@ -16,10 +16,12 @@ partitioner, so here the partitioning is written out:
   neighbours hold, zeros at the image's border, and its backward returns
   the halo rows' cotangents to their owners;
 - `gather_rows` / `scatter_rows` are the model's "pre_spp" and "post_spp"
-  points: the 1/64 stage (layer5 and the PPM) runs on the whole map,
-  replicated on the S ranks of a row;
-- `conv_rows` and `resize_rows` are a sharded conv and a sharded bilinear
-  resize: the rows that the whole image's would give this shard;
+  points: the 1/64 stage (layer5 and the PPM of PIDNet and DDRNet-23) runs
+  on the whole map, replicated on the S ranks of a row;
+- `conv_rows`, `resize_sharded` and `max_pool_rows` are a sharded conv,
+  bilinear resize and max pool: the rows that the whole image's would give
+  this shard; `global_pool_rows` is the whole image's global average pool
+  on every rank of the row (BiSeNet's attention and fusion gates);
 - models/pidnet.spatial_sharding installs them in a model, and
   losses/criterion.FullLoss, train/step.make_spatial_train_step and
   make_spatial_eval_step take the global program's reductions over the
@@ -45,6 +47,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from pidnet_tpu_torch.nn.functional import global_avg_pool
 from pidnet_tpu_torch.ops import resize as R
 from pidnet_tpu_torch.parallel.mesh import Mesh, _on, make_mesh
 
@@ -261,6 +264,61 @@ def scatter_rows(x: torch.Tensor, mesh: SpatialMesh, dim: int = 2) -> torch.Tens
     return x.narrow(dim, mesh.spatial_index * n, n)
 
 
+def max_pool_rows(x: torch.Tensor, kernel: int, stride: int, padding: int,
+                  mesh: SpatialMesh) -> torch.Tensor:
+    """This rank's rows of a kernel x kernel max pool (stride, padding) of
+    the whole image, from NCHW `x`, its rows: `padding` rows from the rank
+    above and kernel - stride - padding from the rank below (3x3/s2/p1: 1
+    and 0), the image's border padded with the dtype's lowest value (the
+    padding never wins, as torch's and the JAX package's pools), then the
+    pool with H padding 0. The shard's first row must be a multiple of the
+    stride. Differentiable: the halo rows' cotangents go back through the
+    halo exchange."""
+    if mesh.n_spatial == 1:
+        return F.max_pool2d(x, kernel, stride, padding)
+    top, bottom = padding, max(kernel - stride - padding, 0)
+    xh = halo_exchange(x, top, bottom, mesh)
+    s, n = mesh.spatial_index, xh.shape[2]
+    low = torch.finfo(x.dtype).min
+    if s == 0 and top:
+        xh = torch.cat([xh.new_full((*xh.shape[:2], top, xh.shape[3]), low), xh[:, :, top:]], 2)
+    if s == mesh.n_spatial - 1 and bottom:
+        xh = torch.cat([xh[:, :, :n - bottom], xh.new_full((*xh.shape[:2], bottom, xh.shape[3]),
+                                                           low)], 2)
+    return F.max_pool2d(xh, kernel, stride, (0, padding))
+
+
+class _GlobalPoolRows(torch.autograd.Function):
+    """The mean over the whole image's H x W of NCHW rows, in fp32 at least."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.args = (mesh, x.shape, x.dtype)
+        acc = torch.promote_types(x.dtype, torch.float32)  # bf16 sums in fp32
+        total = mesh.row_sum(x.sum(dim=(2, 3), keepdim=True, dtype=acc).contiguous())
+        return (total / (x.shape[2] * mesh.n_spatial * x.shape[3])).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, shape, dtype = ctx.args
+        # each rank's use of the pooled vector gives a part of its cotangent
+        acc = torch.promote_types(dtype, torch.float32)
+        g = mesh.row_sum(g.to(acc, copy=True).contiguous())
+        g = g / (shape[2] * mesh.n_spatial * shape[3])
+        return g.expand(shape).to(dtype), None
+
+
+def global_pool_rows(x: torch.Tensor, mesh: SpatialMesh) -> torch.Tensor:
+    """AdaptiveAvgPool2d(1) of the whole image on every rank of the spatial
+    row, from NCHW `x`, this rank's rows: each rank sums its rows in fp32,
+    the row adds the sums, and the result is divided by the image's H x W
+    (N, C, 1, 1, in x's dtype). Its backward adds the cotangents over the
+    row before it spreads them over the rank's rows."""
+    if mesh.n_spatial == 1:
+        return global_avg_pool(x)
+    return _GlobalPoolRows.apply(x, mesh)
+
+
 def hint(name: str, x: torch.Tensor, mesh: SpatialMesh) -> torch.Tensor:
     """The model's partitioning points (models/pidnet.PIDNet._hint): the
     1/32 map is gathered before layer5 and the PPM, and their 1/8 output
@@ -342,10 +400,12 @@ def conv_rows(x: torch.Tensor, weight: torch.Tensor, bias, stride: int, groups: 
 
 @dataclass(frozen=True)
 class ReplicatedSync:
-    """Sync BN inside the gathered 1/64 stage: the S ranks of a spatial row
-    hold the same whole map, so the mean over every rank is the global
-    batch's and a layer's global pixel count is the local count x n_data
-    (not x the mesh's size). The `sync` of nn/functional.batch_norm_train."""
+    """Sync BN on a map replicated over the S ranks of a spatial row (the
+    gathered 1/64 stage, BiSeNet's pooled vectors): the ranks of a row hold
+    the same map, so the mean over every rank is the global batch's and a
+    layer's global pixel count is the local count x n_data (not x the
+    mesh's size, which would skew the unbiased running_var). The `sync` of
+    nn/functional.batch_norm_train."""
 
     world: Mesh
     size: int

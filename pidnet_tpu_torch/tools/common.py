@@ -43,17 +43,6 @@ def build_spec(cfg, augment: bool = True):
     return spec_from_name(cfg.MODEL.NAME, cfg.DATASET.NUM_CLASSES, augment)
 
 
-def check_spatial_family(spec) -> None:
-    """--spatial runs the PIDNet family; DDRNet-23 and BiSeNetV1 raise
-    NotImplementedError (their extra gather points: ROADMAP.md Queue 1
-    item 6b)."""
-    if not isinstance(spec, M.PIDNetSpec):
-        raise NotImplementedError(
-            f"--spatial with {type(spec).__name__.removesuffix('Spec')} is not ported yet "
-            "(ROADMAP.md Queue 1 item 6b): DDRNet's DAPPM and BiSeNet's max and global pools "
-            "need gather points of their own")
-
-
 def init_model(cfg, spec, seed: int = 0) -> dict:
     """Random unfolded weights from `seed` (`models.pidnet.init`; its draws
     differ from the JAX package's for the same seed)."""

@@ -24,9 +24,8 @@ cards than the machine has raises.
 parallel/spatial.py), which join the process group from torchrun's
 environment (nccl on cuda:LOCAL_RANK, gloo with --device cpu): every rank
 reads every frame, runs its rows and gathers the whole prediction, so the
-scores are the same on every rank; rank 0 logs and writes. It refuses the
-test-time augmentation, and DDRNet-23 and BiSeNetV1 (ROADMAP.md Queue 1
-item 6b).
+scores are the same on every rank; rank 0 logs and writes. It takes every
+MODEL.NAME and refuses the test-time augmentation.
 """
 
 from __future__ import annotations
@@ -106,7 +105,6 @@ def main(argv=None):
         if tta:
             raise SystemExit("TEST.MULTI_SCALE/FLIP_TEST is a single-device TTA protocol; drop "
                              "--spatial or disable the TTA flags")
-        common.check_spatial_family(common.build_spec(cfg))
         mesh, dev, joined = _spatial_mesh(args.spatial, dev)
         try:
             return _evaluate(args, cfg, dev, tta, mesh)

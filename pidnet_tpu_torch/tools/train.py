@@ -36,9 +36,8 @@ global batch is TRAIN.BATCH_SIZE_PER_GPU x processes / S. The S ranks of a
 spatial row load the same samples (the loader's shard is the data row,
 rank // S) and the steps are make_spatial_train_step and
 make_spatial_eval_step: global BN statistics and one global OHEM pool of
-LOSS.OHEMKEEP x processes / S pixels, for training and validation. It
-refuses TRAIN.ACCUM_STEPS > 1, and DDRNet-23 and BiSeNetV1 (ROADMAP.md
-Queue 1 item 6b).
+LOSS.OHEMKEEP x processes / S pixels, for training and validation, for
+every MODEL.NAME. It refuses TRAIN.ACCUM_STEPS > 1.
 """
 
 from __future__ import annotations
@@ -120,7 +119,6 @@ def _check_request(args, cfg) -> int:
     if args.spatial < 0:
         raise ValueError(f"--spatial must be >= 1, got {args.spatial}")
     if args.spatial:
-        common.check_spatial_family(common.build_spec(cfg))
         if accum > 1:
             # the spatial step is one global-batch program (global OHEM pool,
             # global BN statistics): sequential virtual shards do not compose

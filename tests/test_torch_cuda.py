@@ -245,28 +245,39 @@ def test_ce_front_kernels_match_plain(cuda_device, dtype, align, shape, out_hw):
     assert (a - b).abs().max().item() <= tol * b.abs().max().item()
 
 
+# (logits, output): the x8 of PIDNet's and DDRNet's heads, BiSeNet's scale 1,
+# and scale 1 with 1100 classes, whose plan is None: the direct K1 over a
+# window (K2 and K3 take at most 1024 classes)
+WINDOW_CASES = {"x8": ((2, 16, 32, 19), (128, 256)), "scale1": ((2, 64, 128, 19), (64, 128)),
+                "direct": ((1, 32, 32, 1100), (32, 32))}
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("align", [True, False])
 @pytest.mark.parametrize("ranks,s", [(2, 0), (2, 1), (4, 0), (4, 1), (4, 3)])
-def test_windowed_kernels_match_windowed_plain(cuda_device, dtype, align, ranks, s):
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_windowed_kernels_match_windowed_plain(cuda_device, dtype, align, ranks, s, case):
     """K1, K2 and K3 over rank s's window of `ranks` spatial ranks
     (H-sharding: the rank's rows of the logits with their halo, the whole
     image's taps) against their windowed plain versions, with the gates of
     the whole image's tests above; the window's launches count in the same
-    counters and in the counts of windowed launches."""
+    counters and in the counts of windowed launches. The "direct" case
+    holds K1's direct kernel over the window (its plan is None)."""
     from pidnet_tpu_torch.parallel import spatial as SP
 
     class Rank:
         n_spatial, spatial_index = ranks, s
 
     rng = np.random.default_rng(5)
-    (n, h, w, c), out_hw = (2, 16, 32, 19), (128, 256)
+    (n, h, w, c), out_hw = WINDOW_CASES[case]
     whole = torch.from_numpy((rng.standard_normal((n, h, w, c)) * 2).astype(np.float32))
     top, bottom, rows = SP.halo_for_resize(h // ranks, out_hw[0] // ranks, align, Rank, margin=1)
     padded = torch.nn.functional.pad(whole, (0, 0, 0, 0, h, h))
     x = padded[:, h + rows.src_start:h + rows.src_start + h // ranks + top + bottom].contiguous()
     x = x.to(cuda_device, getattr(torch, dtype))
     hw = (out_hw[0] // ranks, out_hw[1])
+    direct = case == "direct"
+    assert (TU.plan(*x.shape, *hw, align, rows) is None) == direct
     lab = np.where(rng.random((n, *hw)) < 0.1, 255, rng.integers(0, c, (n, *hw)))
     labels = torch.from_numpy(lab.astype(np.int32)).to(cuda_device)
     cw = torch.from_numpy((0.8 + rng.random(c)).astype(np.float32)).to(cuda_device)
@@ -277,14 +288,17 @@ def test_windowed_kernels_match_windowed_plain(cuda_device, dtype, align, ranks,
 
     before = counts()
     classes = TU.upsample_argmax_rows(x, hw, align, rows)
-    nll, wm = TC.ce_front_fwd(x, labels, cw, 255, hw, align, rows)
-    dl = TC.ce_front_bwd(x, labels, 255, hw, align, g, rows)
-    assert counts() == tuple(b + 1 for b in before)
     want = TU.upsample_argmax_plain(x, hw, align, rows)
     top2 = TC._z(x, hw, align, rows).topk(2, dim=-1).values
     same = classes == want
     assert same.float().mean().item() >= 0.9999
     assert not (~same & (top2[..., 0] - top2[..., 1] > 1e-3)).any()
+    if direct:
+        assert counts() == tuple(b + (i in (0, 3)) for i, b in enumerate(before))
+        return
+    nll, wm = TC.ce_front_fwd(x, labels, cw, 255, hw, align, rows)
+    dl = TC.ce_front_bwd(x, labels, 255, hw, align, g, rows)
+    assert counts() == tuple(b + 1 for b in before)
     xr = x.detach().clone().requires_grad_()
     nll_p, w_p = TC.ce_front_fwd_plain(xr, labels, cw, 255, hw, align, rows)
     (dl_p,) = torch.autograd.grad(nll_p, xr, g)

@@ -210,22 +210,6 @@ def test_mesh_2d_in_one_process():
     assert tuple(SP.shard_rows(mesh, x).shape) == (2, 64, 64, 3)
 
 
-@pytest.mark.parametrize("name", ["ddrnet_23", "bisenet"])
-def test_other_families_refuse_spatial(name):
-    """DDRNet-23 and BiSeNetV1 under --spatial: NotImplementedError naming
-    Queue 1 item 6b, from the model context and from the CLIs' check."""
-    from pidnet_tpu_torch.tools import common
-
-    spec = common.spec_from_name(name, 19)
-    with torch.device("meta"):
-        model = M.module_for(spec)(spec)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        with M.spatial_sharding(model, SP.make_mesh_2d(1, 1, "cpu")):
-            pass
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        common.check_spatial_family(spec)
-
-
 # ---------------------------------------------------------------------------
 # Ranks: the collectives, the sharded model and the steps
 # ---------------------------------------------------------------------------
