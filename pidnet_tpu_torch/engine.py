@@ -17,6 +17,8 @@ return tensors on the model's device. With `data_devices` the first two
 split the batch over one model replica per device (`_data_parallel_infer`);
 with `spatial_mesh` (parallel/spatial.py) they split each image's H rows
 over the ranks of the mesh and return the whole result on every rank.
+Each call of theirs is the span `serve.call` (utils/spans.py), which holds
+`serve.input`, `serve.model` and `serve.classmap`.
 
 Over a data mesh (parallel/mesh.py) every rank runs `train_one_epoch` and
 `validate` on its own loader shard with the mesh's steps; only rank 0 logs
@@ -50,6 +52,7 @@ from pidnet_tpu_torch.ops.upsample_argmax import upsample_argmax, upsample_argma
 from pidnet_tpu_torch.parallel import spatial as SP
 from pidnet_tpu_torch.train.lr import poly_lr
 from pidnet_tpu_torch.utils.logging import AverageMeter
+from pidnet_tpu_torch.utils.spans import span
 
 log = logging.getLogger("pidnet_tpu_torch")
 
@@ -304,10 +307,12 @@ def _runner(cfg, model, dev, compute_dtype):
         if x.ndim != 4 or x.shape[3] != 3 or x.shape[1] % 64 or x.shape[2] % 64:
             raise ValueError(f"expected (N,H,W,3) images with H and W multiples of 64, "
                              f"got {tuple(x.shape)}")
-        x = (x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))).to(dev)
-        if compute_dtype is not None:
-            x = x.to(compute_dtype)
-        return _select_output(cfg, model(x)), (x.shape[1], x.shape[2])
+        with span("serve.input"):
+            x = (x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))).to(dev)
+            if compute_dtype is not None:
+                x = x.to(compute_dtype)
+        with span("serve.model"):
+            return _select_output(cfg, model(x)), (x.shape[1], x.shape[2])
 
     return run
 
@@ -329,8 +334,9 @@ def _data_parallel_infer(fn, devices):
         if x.shape[0] % len(replicas):
             raise ValueError(f"a batch of {x.shape[0]} does not split over {len(replicas)} "
                              "devices; pad it to a multiple (batch_pad)")
-        outs = [run(part) for run, part in zip(replicas, x.chunk(len(replicas)))]
-        return torch.cat([o.to(devices[0]) for o in outs])
+        with span("serve.call"):  # each replica's call is a serve.call inside it
+            outs = [run(part) for run, part in zip(replicas, x.chunk(len(replicas)))]
+            return torch.cat([o.to(devices[0]) for o in outs])
 
     return infer
 
@@ -349,10 +355,11 @@ def _spatial_runner(cfg, spec, state_dict, folded, compute_dtype, mesh, data_dev
         if x.ndim != 4 or x.shape[3] != 3 or x.shape[2] % 64:
             raise ValueError(f"expected (N,H,W,3) images with W a multiple of 64, got "
                              f"{tuple(x.shape)}")
-        x = SP.shard_rows(mesh, _tensor(x).float())
-        if compute_dtype is not None:
-            x = x.to(compute_dtype)
-        with M.spatial_sharding(model, mesh):
+        with span("serve.input"):
+            x = SP.shard_rows(mesh, _tensor(x).float())
+            if compute_dtype is not None:
+                x = x.to(compute_dtype)
+        with span("serve.model"), M.spatial_sharding(model, mesh):
             out = _select_output(cfg, model(x))
         return out, (x.shape[1] * mesh.n_spatial, x.shape[2])
 
@@ -375,9 +382,11 @@ def make_inference(cfg, spec, state_dict, *, folded=False, compute_dtype=None, d
 
         @torch.inference_mode()
         def infer_rows(x):
-            out, hw = run(x)
-            out = SP.gather_rows(out, spatial_mesh, dim=1)
-            return torch.exp(resize_bilinear(out, hw, cfg.MODEL.ALIGN_CORNERS).float())
+            with span("serve.call"):
+                out, hw = run(x)
+                with span("serve.classmap"):
+                    out = SP.gather_rows(out, spatial_mesh, dim=1)
+                    return torch.exp(resize_bilinear(out, hw, cfg.MODEL.ALIGN_CORNERS).float())
 
         return infer_rows
     if data_devices is not None:
@@ -389,9 +398,11 @@ def make_inference(cfg, spec, state_dict, *, folded=False, compute_dtype=None, d
 
     @torch.inference_mode()
     def infer(x):
-        out, hw = run(x)
-        pred = resize_bilinear(out, hw, cfg.MODEL.ALIGN_CORNERS)
-        return torch.exp(pred.float())
+        with span("serve.call"):
+            out, hw = run(x)
+            with span("serve.classmap"):
+                pred = resize_bilinear(out, hw, cfg.MODEL.ALIGN_CORNERS)
+                return torch.exp(pred.float())
 
     return infer
 
@@ -413,12 +424,15 @@ def make_inference_classmap(cfg, spec, state_dict, *, folded=False, compute_dtyp
 
         @torch.inference_mode()
         def infer_rows(x):
-            out, (h, w) = run(x)
-            rows_out = h // spatial_mesh.n_spatial
-            out, rows = SP.halo_rows(out, rows_out, cfg.MODEL.ALIGN_CORNERS, spatial_mesh)
-            classes = upsample_argmax_rows(out.contiguous(), (rows_out, w),
-                                           cfg.MODEL.ALIGN_CORNERS, rows)
-            return SP.gather_rows(classes, spatial_mesh, dim=1)
+            with span("serve.call"):
+                out, (h, w) = run(x)
+                with span("serve.classmap"):
+                    rows_out = h // spatial_mesh.n_spatial
+                    out, rows = SP.halo_rows(out, rows_out, cfg.MODEL.ALIGN_CORNERS,
+                                             spatial_mesh)
+                    classes = upsample_argmax_rows(out.contiguous(), (rows_out, w),
+                                                   cfg.MODEL.ALIGN_CORNERS, rows)
+                    return SP.gather_rows(classes, spatial_mesh, dim=1)
 
         return infer_rows
     if data_devices is not None:
@@ -431,8 +445,10 @@ def make_inference_classmap(cfg, spec, state_dict, *, folded=False, compute_dtyp
 
     @torch.inference_mode()
     def infer(x):
-        out, hw = run(x)
-        return upsample_argmax(out.contiguous(), hw, cfg.MODEL.ALIGN_CORNERS)
+        with span("serve.call"):
+            out, hw = run(x)
+            with span("serve.classmap"):
+                return upsample_argmax(out.contiguous(), hw, cfg.MODEL.ALIGN_CORNERS)
 
     return infer
 

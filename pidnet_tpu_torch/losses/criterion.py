@@ -38,6 +38,7 @@ from pidnet_tpu_torch.ops.ce_front import ce_maps, class_weights_on
 from pidnet_tpu_torch.ops.resize import resize_bilinear, resize_rows
 from pidnet_tpu_torch.ops.upsample_argmax import upsample_argmax_rows
 from pidnet_tpu_torch.parallel import spatial as SP
+from pidnet_tpu_torch.utils.spans import span
 
 _BIG = 2.0  # sentinel probability of invalid pixels; any real one is < 1
 
@@ -94,16 +95,17 @@ def _ohem_from_maps(nll, w, valid, thres: float, min_kept: int, mesh=None):
     min_kept = max(1, int(min_kept))
     wl = nll * w
     true_prob = torch.where(valid, torch.exp(-nll.detach()), _BIG).reshape(-1)
-    if mesh is None:
-        k = torch.clamp(valid.sum() - 1, max=min_kept).clamp(0, true_prob.numel() - 1)
-        kth = torch.take(torch.sort(true_prob).values, k)
-    else:
-        k = torch.clamp(mesh.total(valid.sum()) - 1, max=min_kept)
-        k = k.clamp(0, mesh.size * true_prob.numel() - 1)
-        smallest = torch.sort(true_prob).values[:min_kept + 1]
-        smallest = torch.nn.functional.pad(smallest, (0, min_kept + 1 - smallest.numel()),
-                                           value=float("inf"))
-        kth = torch.take(torch.sort(mesh.world_gather(smallest)).values, k)
+    with span("loss.ohem"):
+        if mesh is None:
+            k = torch.clamp(valid.sum() - 1, max=min_kept).clamp(0, true_prob.numel() - 1)
+            kth = torch.take(torch.sort(true_prob).values, k)
+        else:
+            k = torch.clamp(mesh.total(valid.sum()) - 1, max=min_kept)
+            k = k.clamp(0, mesh.size * true_prob.numel() - 1)
+            smallest = torch.sort(true_prob).values[:min_kept + 1]
+            smallest = torch.nn.functional.pad(smallest, (0, min_kept + 1 - smallest.numel()),
+                                               value=float("inf"))
+            kth = torch.take(torch.sort(mesh.world_gather(smallest)).values, k)
     threshold = torch.clamp(kth, min=thres)
     keep = valid.reshape(-1) & (true_prob < threshold)
     kept = torch.where(keep, wl.reshape(-1), 0.0)
@@ -270,12 +272,13 @@ class FullLoss:
         final_maps = (nll_f, w_f, valid_f)
 
         loss_s = self.sem_loss(seg_heads, labels, numel, (h, w), final_maps, mesh, windows)
-        loss_b = self.bd_coeff * weighted_bce(
-            bd_head, bd_gt, numel if mesh is None else total(numel), total)
+        with span("loss.boundary"):
+            loss_b = self.bd_coeff * weighted_bce(
+                bd_head, bd_gt, numel if mesh is None else total(numel), total)
 
-        bd_conf = torch.sigmoid(bd_head[..., 0].float()) > 0.8
-        sb_maps = (nll_f, torch.where(bd_conf, w_f, 0.0), valid_f & bd_conf)
-        loss_sb = self.sb_weights * self._single_maps(sb_maps, self.use_ohem, numel, mesh)
+            bd_conf = torch.sigmoid(bd_head[..., 0].float()) > 0.8
+            sb_maps = (nll_f, torch.where(bd_conf, w_f, 0.0), valid_f & bd_conf)
+            loss_sb = self.sb_weights * self._single_maps(sb_maps, self.use_ohem, numel, mesh)
 
         loss = loss_s + loss_b + loss_sb
         metrics = {"loss": loss, "acc": acc, "sem_loss": loss_s, "bce_loss": loss_b,

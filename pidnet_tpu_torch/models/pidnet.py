@@ -52,6 +52,7 @@ from pidnet_tpu_torch.nn.functional import (
 )
 from pidnet_tpu_torch.ops.resize import interpolate
 from pidnet_tpu_torch.parallel import spatial as SP
+from pidnet_tpu_torch.utils import spans
 
 ALGC = False  # align_corners for all interior resizes
 
@@ -103,10 +104,10 @@ class Conv2d(nn.Module):
 class BatchNorm(nn.Module):
     """BatchNorm, eps 1e-5; keys weight/bias/running_mean/running_var. In
     training mode it normalises with the batch statistics and updates the
-    running buffers in place (momentum 0.1, unbiased variance); with
-    `sync` set (a `parallel.mesh.Mesh`, see `sync_batch_norm`, or a
-    `parallel.spatial.ReplicatedSync`, see `spatial_sharding`) the
-    statistics are the mesh's global batch's."""
+    running buffers in place (momentum 0.1, unbiased variance), as the span
+    `bn` (utils/spans.py); with `sync` set (a `parallel.mesh.Mesh`, see
+    `sync_batch_norm`, or a `parallel.spatial.ReplicatedSync`, see
+    `spatial_sharding`) the statistics are the mesh's global batch's."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -120,12 +121,13 @@ class BatchNorm(nn.Module):
         if not self.training:
             return batch_norm_infer(x, self.weight, self.bias, self.running_mean,
                                     self.running_var)
-        y, mean, var = batch_norm_train(x, self.weight, self.bias, self.running_mean,
-                                        self.running_var, sync=self.sync)
-        with torch.no_grad():
-            self.running_mean.copy_(mean)
-            self.running_var.copy_(var)
-        return y
+        with spans.span("bn"):
+            y, mean, var = batch_norm_train(x, self.weight, self.bias, self.running_mean,
+                                            self.running_var, sync=self.sync)
+            with torch.no_grad():
+                self.running_mean.copy_(mean)
+                self.running_var.copy_(var)
+            return y
 
 
 @contextlib.contextmanager
@@ -514,26 +516,36 @@ class PIDNet(Network):
         x = relu(self.layer3(x))  # I @1/16
         # The reference's inplace ReLU mutates the saved temp_p after pag3,
         # so seghead_p reads relu(pag3 output); the same holds for temp_d.
-        x_ = relu(self.pag3(x_, self.compression3(x)))
+        y = self.compression3(x)
+        with spans.span("model.pag"):
+            x_ = self.pag3(x_, y)
+        x_ = relu(x_)
         temp_p = x_
         x_d = x_d + _resize(self, self.diff3(x), hw8, ALGC)
         x = relu(self.layer4(x))  # I @1/32
         x_ = self.layer4_(x_)
         x_d = self.layer4_d(relu(x_d))
-        x_ = self.pag4(x_, self.compression4(x))
+        y = self.compression4(x)
+        with spans.span("model.pag"):
+            x_ = self.pag4(x_, y)
         x_d = relu(x_d + _resize(self, self.diff4(x), hw8, ALGC))
         temp_d = x_d
         x_ = self.layer5_(relu(x_))
         x_d = self.layer5_d(x_d)
-        x = self.spp(self.layer5(self._hint("pre_spp", x)))  # I @1/64
+        x = self.layer5(self._hint("pre_spp", x))
+        with spans.span("model.ppm"):
+            x = self.spp(x)  # I @1/64
         # to 8x the 1/64 map, the input's 1/8 (H and W multiples of 64): under
         # H-sharding the map is the whole image's and hw8 only a shard's
         x = self._hint("post_spp", interpolate(x, (8 * x.shape[2], 8 * x.shape[3]), ALGC))
-        out = self.final_layer(self.dfm(x_, x, x_d))
-        if self.spec.augment:
-            heads = [self.seghead_p(temp_p), out, self.seghead_d(temp_d)]
-            return [h.permute(0, 2, 3, 1) for h in heads]
-        return out.permute(0, 2, 3, 1)
+        with spans.span("model.bag"):
+            x = self.dfm(x_, x, x_d)
+        with spans.span("model.head"):
+            out = self.final_layer(x)
+            if self.spec.augment:
+                heads = [self.seghead_p(temp_p), out, self.seghead_d(temp_d)]
+                return [h.permute(0, 2, 3, 1) for h in heads]
+            return out.permute(0, 2, 3, 1)
 
 
 @contextlib.contextmanager

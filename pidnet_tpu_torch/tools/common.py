@@ -1,6 +1,6 @@
 """Shared CLI plumbing (counterpart of pidnet_tpu/tools/common.py): the
-model spec from a config, random weights, and weight loading from every
-container the CLIs take.
+model spec from a config, random weights, weight loading from every
+container the CLIs take, and the XLA.PROFILE_DIR trace.
 
 Weights are port state dicts (train/checkpoint.py's names, conv weights
 OIHW, float32 on the CPU); a `template` is the state dict of the model
@@ -18,6 +18,7 @@ from pidnet_tpu_torch.convert import weights as W
 from pidnet_tpu_torch.convert.fold import fold_state_dict
 from pidnet_tpu_torch.models import pidnet as M
 from pidnet_tpu_torch.train import checkpoint as ckpt
+from pidnet_tpu_torch.utils import spans
 
 log = logging.getLogger("pidnet_tpu_torch")
 
@@ -110,3 +111,31 @@ def maybe_load_pretrained(cfg, template: dict) -> dict:
     if path:
         log.warning("pretrained file %s not found; training from scratch", path)
     return template
+
+
+class ProfileTrace:
+    """torch.profiler from its creation to `stop()`, written then as the
+    Chrome trace `profile_dir`/`file`, with the program's spans recorded
+    (`utils.spans.recording`) while it runs, so that they lie above the
+    device lanes; does nothing for an empty `profile_dir`. `stop()` may be
+    called again."""
+
+    def __init__(self, profile_dir: str, file: str, dev: torch.device):
+        self.path = os.path.join(profile_dir, file) if profile_dir else ""
+        self.prof = None
+        if profile_dir:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.spans = spans.recording()
+            self.spans.__enter__()
+            self.prof.start()
+
+    def stop(self) -> None:
+        if self.prof is not None:
+            self.prof.stop()
+            self.spans.__exit__(None, None, None)
+            os.makedirs(os.path.dirname(self.path), exist_ok=True)
+            self.prof.export_chrome_trace(self.path)
+            self.prof = None

@@ -26,6 +26,11 @@ environment (nccl on cuda:LOCAL_RANK, gloo with --device cpu): every rank
 reads every frame, runs its rows and gathers the whole prediction, so the
 scores are the same on every rank; rank 0 logs and writes. It takes every
 MODEL.NAME and refuses the test-time augmentation.
+
+XLA.PROFILE_DIR writes a Chrome trace of the evaluation there
+(torch.profiler; rank 0's under --spatial), with the program's serving
+spans (utils/spans.py: `serve.call`, `serve.input`, `serve.model`,
+`serve.classmap`, and the model's `model.pag`, ...) above the device lanes.
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ from pidnet_tpu_torch.parallel.mesh import init_process_group
 from pidnet_tpu_torch.parallel.spatial import make_mesh_2d
 from pidnet_tpu_torch.tools import common
 from pidnet_tpu_torch.utils.logging import create_logger
+
+TRACE_FILE = "eval.json"
 
 
 def parse_args(argv=None):
@@ -166,12 +173,16 @@ def _evaluate(args, cfg, dev, tta: bool, mesh):
     infer = make(cfg, spec, sd, folded=args.fold_bn, compute_dtype=compute_dtype, device=dev,
                  **kw)
 
-    if "test" in cfg.DATASET.TEST_SET and "city" in cfg.DATASET.DATASET:
-        engine.test(cfg, test_dataset, testloader, infer, sv_dir=final_output_dir,
-                    sv_pred=rank == 0, batch_pad=batch_pad)
-        return None
-    mean_iou, iou_array, pixel_acc, mean_acc = engine.testval(
-        cfg, test_dataset, testloader, infer, sv_dir=final_output_dir, batch_pad=batch_pad)
+    profile = common.ProfileTrace(cfg.XLA.PROFILE_DIR if rank == 0 else "", TRACE_FILE, dev)
+    try:
+        if "test" in cfg.DATASET.TEST_SET and "city" in cfg.DATASET.DATASET:
+            engine.test(cfg, test_dataset, testloader, infer, sv_dir=final_output_dir,
+                        sv_pred=rank == 0, batch_pad=batch_pad)
+            return None
+        mean_iou, iou_array, pixel_acc, mean_acc = engine.testval(
+            cfg, test_dataset, testloader, infer, sv_dir=final_output_dir, batch_pad=batch_pad)
+    finally:
+        profile.stop()
     logger.info("MeanIU: %.4f, Pixel_Acc: %.4f, Mean_Acc: %.4f", mean_iou, pixel_acc, mean_acc)
     logger.info("%s", iou_array)
     return mean_iou, iou_array, pixel_acc, mean_acc

@@ -13,7 +13,9 @@ mIoU improvement and final_state.pt the end. TRAIN.RESUME true picks up
 checkpoint.pt at the iteration it recorded. SIGTERM stops at the next step
 (or validation batch), writes checkpoint.pt and returns with exit code 0.
 XLA.PROFILE_DIR writes a Chrome trace of the first epoch there
-(torch.profiler). XLA.BF16_TRAIN and XLA.BF16_EVAL pick the compute dtype
+(torch.profiler), with the program's spans (utils/spans.py: `train.step`,
+`train.forward`, `train.loss`, `train.backward`, `bn`, ...) above the
+device lanes. XLA.BF16_TRAIN and XLA.BF16_EVAL pick the compute dtype
 of the train and validation steps.
 
 Data parallelism (parallel/mesh.py): --multihost joins the process group
@@ -175,28 +177,6 @@ def _mesh(cfg, dev, multihost: bool, spatial: int = 0):
     return make_mesh(cfg.DEVICES, dev)
 
 
-class _FirstEpochProfile:
-    """torch.profiler over the first epoch this run trains, written as a
-    Chrome trace to XLA.PROFILE_DIR; does nothing without it."""
-
-    def __init__(self, profile_dir: str, dev: torch.device):
-        self.dir = profile_dir
-        self.prof = None
-        if profile_dir:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if dev.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self.prof = torch.profiler.profile(activities=acts)
-            self.prof.start()
-
-    def stop(self) -> None:
-        if self.prof is not None:
-            self.prof.stop()
-            os.makedirs(self.dir, exist_ok=True)
-            self.prof.export_chrome_trace(os.path.join(self.dir, TRACE_FILE))
-            self.prof = None
-
-
 def main(argv=None):
     args = parse_args(argv)
     # Preemption: install the flag-only handler first, so that a SIGTERM
@@ -300,7 +280,8 @@ def _train_on(args, cfg, accum: int, mesh, should_stop) -> None:
     num_iters = cfg.TRAIN.END_EPOCH * epoch_iters
     # CamVid trains 120 epochs whatever END_EPOCH says (reference tools/train.py:172)
     real_end = 120 + 1 if "camvid" in cfg.DATASET.TRAIN_SET else cfg.TRAIN.END_EPOCH
-    profile = _FirstEpochProfile(cfg.XLA.PROFILE_DIR if primary else "", dev)
+    # the first epoch (and its validation), with the program's spans
+    profile = common.ProfileTrace(cfg.XLA.PROFILE_DIR if primary else "", TRACE_FILE, dev)
     valid_loss, mean_iou, iou_array = float("nan"), 0.0, None
     try:
         for epoch in range(last_epoch, real_end):
@@ -358,6 +339,7 @@ def _train_on(args, cfg, accum: int, mesh, should_stop) -> None:
             ckpt.save_model(os.path.join(final_output_dir, "final_state.pt"), ts.params(),
                             ts.state())
     finally:
+        profile.stop()
         if primary:
             writer_dict["writer"].close()
     logger.info("Hours: %d", int((timeit.default_timer() - start) / 3600))

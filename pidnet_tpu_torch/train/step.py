@@ -22,6 +22,12 @@ loss, so the gradients, and the metrics, are SUMMED over the mesh in one
 flat bucket (`Mesh.all_reduce_sums`), where the data step averages its
 replicas', each rank's own mean loss (`Mesh.all_reduce_mean`).
 
+Each train step is the span `train.step` (utils/spans.py) over
+`train.forward`, `train.loss`, `train.backward` (which holds
+`train.loss.backward`, the loss's own backward), `train.allreduce` over a
+mesh, and `train.update`; each eval step is `eval.step` over
+`eval.forward` and `eval.loss`.
+
 The update is the JAX package's `_sgd`, torch.optim.SGD's semantics as the
 reference configures it (tools/train.py:139-148): weight decay folded into
 the gradient, a momentum buffer, optional Nesterov. Unlike the JAX step,
@@ -45,6 +51,7 @@ from pidnet_tpu_torch.metrics import confusion_matrix
 from pidnet_tpu_torch.models.pidnet import spatial_sharding, sync_batch_norm
 from pidnet_tpu_torch.ops.resize import resize_bilinear, resize_rows
 from pidnet_tpu_torch.ops.upsample_argmax import upsample_argmax, upsample_argmax_rows
+from pidnet_tpu_torch.utils.spans import backward_span, span
 
 
 @dataclass
@@ -116,8 +123,13 @@ def make_train_step(ts: TrainState, loss_fn, mesh=None, *, momentum: float = 0.9
     def grads_of(images, labels, edges):
         x = images if compute_dtype is None else images.to(compute_dtype)
         with sync_batch_norm(ts.model, sync):
-            loss, metrics = loss_fn(ts.model(x), labels, edges)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            with span("train.forward"):
+                outputs = ts.model(x)
+            with span("train.loss"):
+                loss, metrics = loss_fn(outputs, labels, edges)
+            with span("train.backward"):
+                backward_span("train.loss.backward", loss, outputs)
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         return grads, {k: v.detach() for k, v in metrics.items()}
 
@@ -142,20 +154,24 @@ def make_train_step(ts: TrainState, loss_fn, mesh=None, *, momentum: float = 0.9
         return g_sum, {k: v / accum_steps for k, v in m_sum.items()}
 
     def step(images, labels, edges, lr: float) -> dict:
-        ts.model.train()
-        if accum_steps == 1:
-            grads, metrics = grads_of(images, labels, edges)
-        else:
-            grads, metrics = accumulated(images, labels, edges)
-        if mesh is not None and mesh.group is not None:
-            keys = list(metrics)
-            out = mesh.all_reduce_mean([*grads, *stats, *(metrics[k].float() for k in keys)])
-            grads = out[:len(grads)]
-            with torch.no_grad():
-                torch._foreach_copy_(stats, out[len(grads):len(grads) + len(stats)])
-            metrics = dict(zip(keys, out[len(grads) + len(stats):]))
-        _sgd(params, grads, bufs, lr, momentum, weight_decay, nesterov)
-        return metrics
+        with span("train.step"):
+            ts.model.train()
+            if accum_steps == 1:
+                grads, metrics = grads_of(images, labels, edges)
+            else:
+                grads, metrics = accumulated(images, labels, edges)
+            if mesh is not None and mesh.group is not None:
+                with span("train.allreduce"):
+                    keys = list(metrics)
+                    out = mesh.all_reduce_mean([*grads, *stats,
+                                                *(metrics[k].float() for k in keys)])
+                    grads = out[:len(grads)]
+                    with torch.no_grad():
+                        torch._foreach_copy_(stats, out[len(grads):len(grads) + len(stats)])
+                    metrics = dict(zip(keys, out[len(grads) + len(stats):]))
+            with span("train.update"):
+                _sgd(params, grads, bufs, lr, momentum, weight_decay, nesterov)
+            return metrics
 
     return step
 
@@ -193,33 +209,36 @@ def make_eval_step(model: nn.Module, loss_fn, mesh=None, *, num_classes: int,
 
     @torch.inference_mode()
     def step(images, labels, edges, sample_mask):
-        model.eval()
-        images, edges = tensor(images, torch.float32), tensor(edges, torch.float32)
-        labels, mask = tensor(labels, torch.int32), tensor(sample_mask, torch.float32)
-        x = images if compute_dtype is None else images.to(compute_dtype)
-        outputs = model(x)
-        _, metrics = loss_fn(outputs, labels, edges, sample_mask=mask)
-        w = mask.sum()
-        keys = list(metrics)
-        sums = torch.stack([metrics[k].float() * w for k in keys] + [w])
-        if mesh is not None:
-            mesh.all_reduce_sum(sums)
-        total = sums[-1]
-        metrics = {k: sums[i] / torch.clamp(total, min=1.0) for i, k in enumerate(keys)}
-        metrics["weight"] = total
-        labels = torch.where(mask.reshape(-1, 1, 1) > 0, labels, ignore)
-        hw = (labels.shape[1], labels.shape[2])
-        cms = []
-        for o in outputs[:-1]:
-            if compute_dtype == torch.bfloat16:
-                seg = upsample_argmax(o.contiguous(), hw, align)
-            else:
-                seg = resize_bilinear(o, hw, align)
-            cms.append(confusion_matrix(seg, labels, num_classes, ignore))
-        cms = torch.stack(cms)
-        if mesh is not None:
-            mesh.all_reduce_sum(cms)
-        return metrics, cms
+        with span("eval.step"):
+            model.eval()
+            images, edges = tensor(images, torch.float32), tensor(edges, torch.float32)
+            labels, mask = tensor(labels, torch.int32), tensor(sample_mask, torch.float32)
+            x = images if compute_dtype is None else images.to(compute_dtype)
+            with span("eval.forward"):
+                outputs = model(x)
+            with span("eval.loss"):
+                _, metrics = loss_fn(outputs, labels, edges, sample_mask=mask)
+            w = mask.sum()
+            keys = list(metrics)
+            sums = torch.stack([metrics[k].float() * w for k in keys] + [w])
+            if mesh is not None:
+                mesh.all_reduce_sum(sums)
+            total = sums[-1]
+            metrics = {k: sums[i] / torch.clamp(total, min=1.0) for i, k in enumerate(keys)}
+            metrics["weight"] = total
+            labels = torch.where(mask.reshape(-1, 1, 1) > 0, labels, ignore)
+            hw = (labels.shape[1], labels.shape[2])
+            cms = []
+            for o in outputs[:-1]:
+                if compute_dtype == torch.bfloat16:
+                    seg = upsample_argmax(o.contiguous(), hw, align)
+                else:
+                    seg = resize_bilinear(o, hw, align)
+                cms.append(confusion_matrix(seg, labels, num_classes, ignore))
+            cms = torch.stack(cms)
+            if mesh is not None:
+                mesh.all_reduce_sum(cms)
+            return metrics, cms
 
     return step
 
@@ -245,16 +264,25 @@ def make_spatial_train_step(ts: TrainState, loss_fn, mesh, *, momentum: float = 
     bufs = [ts.momentum[k] for k in names]
 
     def step(images, labels, edges, lr: float) -> dict:
-        ts.model.train()
-        x = images if compute_dtype is None else images.to(compute_dtype)
-        with spatial_sharding(ts.model, mesh):
-            loss, metrics = loss_fn(ts.model(x), labels, edges, mesh=mesh)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        keys = list(metrics)
-        out = mesh.world.all_reduce_sums([*grads, *(metrics[k].detach().float() for k in keys)])
-        _sgd(params, out[:len(grads)], bufs, lr, momentum, weight_decay, nesterov)
-        return dict(zip(keys, out[len(grads):]))
+        with span("train.step"):
+            ts.model.train()
+            x = images if compute_dtype is None else images.to(compute_dtype)
+            with spatial_sharding(ts.model, mesh):
+                with span("train.forward"):
+                    outputs = ts.model(x)
+                with span("train.loss"):
+                    loss, metrics = loss_fn(outputs, labels, edges, mesh=mesh)
+                with span("train.backward"):
+                    backward_span("train.loss.backward", loss, outputs)
+                    grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            with span("train.allreduce"):
+                keys = list(metrics)
+                out = mesh.world.all_reduce_sums([*grads,
+                                                  *(metrics[k].detach().float() for k in keys)])
+            with span("train.update"):
+                _sgd(params, out[:len(grads)], bufs, lr, momentum, weight_decay, nesterov)
+            return dict(zip(keys, out[len(grads):]))
 
     return step
 
@@ -285,35 +313,38 @@ def make_spatial_eval_step(model: nn.Module, loss_fn, mesh, *, num_classes: int,
 
     @torch.inference_mode()
     def step(images, labels, edges, sample_mask):
-        model.eval()
-        images, edges = tensor(images, torch.float32), tensor(edges, torch.float32)
-        labels, mask = tensor(labels, torch.int32), tensor(sample_mask, torch.float32)
-        x = images if compute_dtype is None else images.to(compute_dtype)
-        hw = (labels.shape[1], labels.shape[2])
-        with spatial_sharding(model, mesh):
-            outputs = model(x)
-        # the heads' halo rows, exchanged once for the loss and the matrices
-        heads = loss_fn.halo_heads(outputs, hw[0], mesh)
-        _, metrics = loss_fn(outputs, labels, edges, sample_mask=mask, mesh=mesh, heads=heads)
-        labels = torch.where(mask.reshape(-1, 1, 1) > 0, labels, ignore)
-        cms = []
-        for o, (oh, rows) in zip(outputs[:-1], heads[:-1]):
-            if compute_dtype == torch.bfloat16:
-                seg = upsample_argmax_rows(oh.contiguous(), hw, align, rows)
-            elif rows is None:
-                seg = resize_bilinear(o, hw, align)
-            else:
-                seg = resize_rows(oh.permute(0, 3, 1, 2), hw, align, rows).permute(0, 2, 3, 1)
-            cms.append(confusion_matrix(seg, labels, num_classes, ignore))
-        # the S ranks of a data row hold the same samples: one counts them
-        w = mask.sum() if mesh.spatial_index == 0 else torch.zeros((), device=dev)
-        keys = list(metrics)
-        sums = torch.stack([metrics[k].float() for k in keys] + [w])
-        mesh.world.all_reduce_sum(sums)
-        metrics = {k: sums[i] for i, k in enumerate(keys)}
-        metrics["weight"] = sums[-1]
-        cms = torch.stack(cms)
-        mesh.world.all_reduce_sum(cms)
-        return metrics, cms
+        with span("eval.step"):
+            model.eval()
+            images, edges = tensor(images, torch.float32), tensor(edges, torch.float32)
+            labels, mask = tensor(labels, torch.int32), tensor(sample_mask, torch.float32)
+            x = images if compute_dtype is None else images.to(compute_dtype)
+            hw = (labels.shape[1], labels.shape[2])
+            with span("eval.forward"), spatial_sharding(model, mesh):
+                outputs = model(x)
+            with span("eval.loss"):
+                # the heads' halo rows, exchanged once for the loss and the matrices
+                heads = loss_fn.halo_heads(outputs, hw[0], mesh)
+                _, metrics = loss_fn(outputs, labels, edges, sample_mask=mask, mesh=mesh,
+                                     heads=heads)
+            labels = torch.where(mask.reshape(-1, 1, 1) > 0, labels, ignore)
+            cms = []
+            for o, (oh, rows) in zip(outputs[:-1], heads[:-1]):
+                if compute_dtype == torch.bfloat16:
+                    seg = upsample_argmax_rows(oh.contiguous(), hw, align, rows)
+                elif rows is None:
+                    seg = resize_bilinear(o, hw, align)
+                else:
+                    seg = resize_rows(oh.permute(0, 3, 1, 2), hw, align, rows).permute(0, 2, 3, 1)
+                cms.append(confusion_matrix(seg, labels, num_classes, ignore))
+            # the S ranks of a data row hold the same samples: one counts them
+            w = mask.sum() if mesh.spatial_index == 0 else torch.zeros((), device=dev)
+            keys = list(metrics)
+            sums = torch.stack([metrics[k].float() for k in keys] + [w])
+            mesh.world.all_reduce_sum(sums)
+            metrics = {k: sums[i] for i, k in enumerate(keys)}
+            metrics["weight"] = sums[-1]
+            cms = torch.stack(cms)
+            mesh.world.all_reduce_sum(cms)
+            return metrics, cms
 
     return step

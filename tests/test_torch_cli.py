@@ -594,6 +594,25 @@ def test_eval_cli_folded_routing(tree, tmp_path):
     assert exc.value.code not in (0, None)
 
 
+@pytest.mark.parametrize("flags, opts, calls", [
+    ([], (), {"serve.call": 2, "serve.input": 2, "serve.model": 2, "serve.classmap": 2}),
+    (["--fold-bn"], ("DEVICES", "2"),
+     {"serve.call": 3, "serve.input": 2, "serve.model": 2, "serve.classmap": 2}),
+], ids=["fp32", "folded-data-parallel"])
+def test_eval_cli_profile_shows_the_serving_spans(tree, tmp_path, flags, opts, calls):
+    """XLA.PROFILE_DIR writes the evaluation's trace with the serving spans:
+    a call for each of the 2 frames, or, data-parallel, one call of both
+    holding one call of each replica."""
+    prof = tmp_path / "prof"
+    eval_tool.main(_argv(tree, tmp_path, "TEST.MODEL_FILE", WEIGHTS, *opts, "XLA.PROFILE_DIR",
+                         str(prof), flags=flags))
+    with open(prof / eval_tool.TRACE_FILE) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert {n: names.count(n) for n in calls} == calls
+    assert "model.pag" in names
+
+
 def test_eval_cli_test_list_writes_predictions(tree, tmp_path):
     out = eval_tool.main(_argv(tree, tmp_path, "TEST.MODEL_FILE", WEIGHTS, "DATASET.TEST_SET",
                                "list/cityscapes/test.lst", flags=["--fold-bn"]))
