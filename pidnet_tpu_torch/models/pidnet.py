@@ -125,8 +125,7 @@ class BatchNorm(nn.Module):
             y, mean, var = batch_norm_train(x, self.weight, self.bias, self.running_mean,
                                             self.running_var, sync=self.sync)
             with torch.no_grad():
-                self.running_mean.copy_(mean)
-                self.running_var.copy_(var)
+                torch._foreach_copy_((self.running_mean, self.running_var), (mean, var))
             return y
 
 

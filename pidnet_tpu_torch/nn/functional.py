@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from pidnet_tpu_torch.ops.batch_norm import bn_train
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # reference models/pidnet.py:12 (bn_mom)
 
@@ -79,16 +81,21 @@ def batch_norm_train(
     bf16 BN normalises in fp32 and forms the variance another way, so
     F.batch_norm is not the same function, nor is nn.SyncBatchNorm).
 
+    Without `sync` this is `ops.batch_norm.bn_train`: hand-written CUDA
+    kernels for a CUDA tensor (channels_last bf16 or fp32), its plain
+    version for a CPU tensor; y is then formed in fp32 and rounded once.
     With `sync` (a `parallel.mesh.Mesh`) the batch statistics are those of
     the mesh's global batch, sync BN as the JAX function's `axis_name`
     computes it: (mean, mean_sq) are pmean'd across the ranks and the
-    unbiased variance counts n x the mesh's size values."""
+    unbiased variance counts n x the mesh's size values; these eager ops
+    are that path's own."""
+    if sync is None:
+        return bn_train(x, gamma, beta, running_mean, running_var, momentum)
     n = x.numel() // x.shape[1]
     mean = torch.mean(x, dim=(0, 2, 3), dtype=torch.float32)
     mean_sq = torch.mean(torch.square(x.float()), dim=(0, 2, 3))
-    if sync is not None:
-        mean, mean_sq = sync.pmean(torch.stack([mean, mean_sq])).unbind(0)
-        n *= sync.size
+    mean, mean_sq = sync.pmean(torch.stack([mean, mean_sq])).unbind(0)
+    n *= sync.size
     var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
     scale = torch.rsqrt(var + BN_EPS) * gamma
     shift = beta - mean * scale

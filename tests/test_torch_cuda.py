@@ -17,6 +17,7 @@ from pidnet_tpu_torch.convert.fold import fold_state_dict
 from pidnet_tpu_torch.convert.weights import load_npz
 from pidnet_tpu_torch.losses.criterion import FullLoss
 from pidnet_tpu_torch.models import pidnet as M
+from pidnet_tpu_torch.ops import batch_norm as TB
 from pidnet_tpu_torch.ops import ce_front as TC
 from pidnet_tpu_torch.ops import conv3x3 as TK
 from pidnet_tpu_torch.ops import upsample_argmax as TU
@@ -391,6 +392,123 @@ def test_conv3x3_kernel_matches_plain(cuda_device, out_dtype, epilogue, shape):
     assert got.dtype == dtype and got.shape == want.shape == (n, h, w, cout)
     atol, rtol = (0.0079, 0.01) if dtype == torch.bfloat16 else (1e-4, 1e-4)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("name,bns", [("pidnet_s", 79), ("pidnet_l", 90)])
+def test_train_step_runs_every_bn_on_the_kernels(cuda_device, name, bns):
+    """One bf16 step: each of the model's train-mode BN calls (counted by
+    forward hooks) launches the BN forward once and its backward once."""
+    spec = M.spec_for(name, 19, augment=True)
+    model = M.build(spec, M.init(spec, torch.Generator().manual_seed(0)), device=cuda_device,
+                    train=True)
+    calls = []
+    for mod in model.modules():
+        if isinstance(mod, M.BatchNorm):
+            mod.register_forward_pre_hook(lambda m, inp: calls.append(m))
+    ts = TrainState.create(model)
+    step = make_train_step(ts, FullLoss(ignore_label=255, ohem_kept=1000),
+                           compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.standard_normal((2, 128, 128, 3)).astype(np.float32))
+    lab = torch.from_numpy(rng.integers(0, 19, (2, 128, 128)).astype(np.int32))
+    edge = torch.from_numpy((rng.random((2, 128, 128)) < 0.1).astype(np.float32))
+    before = (TB.fwd_launches, TB.bwd_launches)
+    metrics = step(img.to(cuda_device), lab.to(cuda_device), edge.to(cuda_device), 0.01)
+    assert np.isfinite(float(metrics["loss"])) and len(calls) == bns
+    assert (TB.fwd_launches, TB.bwd_launches) == (before[0] + bns, before[1] + bns)
+
+
+# (N, C, H, W) of train-mode BN: PIDNet-L's stem at 12 x 1024^2 and 1/64 of
+# it, DAPPM's 560 channels at 1/64 resolution, the last stage's 1024 at
+# 1/32, pooled vectors, ragged rows, 96 and 19 channels (8-byte and 2-byte
+# loads in bf16)
+BN_SHAPES = [(12, 64, 512, 512), (12, 64, 64, 64), (12, 560, 16, 16), (12, 1024, 32, 32),
+             (4, 1024, 1, 1), (3, 96, 5, 7), (2, 19, 3, 5)]
+
+
+def _bn_inputs(shape, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    c = shape[1]
+    x = torch.randn(shape, generator=g, device=device) * 3 + 1
+    dy = torch.randn(shape, generator=g, device=device)
+    x, dy = (t.to(dtype).contiguous(memory_format=torch.channels_last) for t in (x, dy))
+    gamma, beta, rm = (torch.randn(c, generator=g, device=device) for _ in range(3))
+    rv = torch.rand(c, generator=g, device=device) + 0.5
+    return x, dy, gamma, beta, rm, rv
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_batch_norm_kernels_match_plain(cuda_device, dtype, shape):
+    """The kernels against their plain versions on the card, one launch
+    counted each way. Both sum in fp32 in other orders: dbeta and dgamma
+    within 1e-5 of the sum of their terms' magnitudes, the per-channel
+    numbers within 1e-4 + 1e-5 of each; y and dx within one step of their
+    dtype (2^-7 in bf16, 1e-5 in fp32) and 1e-5 of their largest value
+    (the per-channel numbers they are formed from differ in their last
+    bits). The clamp's mask is equal."""
+    dtype = getattr(torch, dtype)
+    x, dy, gamma, beta, rm, rv = _bn_inputs(shape, dtype, cuda_device)
+    before = (TB.fwd_launches, TB.bwd_launches)
+    y, ws = TB.bn_forward(x, gamma, beta, rm, rv, 0.1)
+    dx, dg, db = TB.bn_backward(x, dy, ws)
+    torch.cuda.synchronize()
+    assert (TB.fwd_launches, TB.bwd_launches) == (before[0] + 1, before[1] + 1)
+    y_p, ws_p = TB.bn_forward_plain(x, gamma, beta, rm, rv, 0.1)
+    dx_p, dg_p, db_p = TB.bn_backward_plain(x, dy, ws_p)
+    assert y.dtype == dx.dtype == dtype and y.shape == dx.shape == x.shape
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(ws[TB.VAR_MASK], ws_p[TB.VAR_MASK])
+    for row in (TB.MEAN, TB.RSTD, TB.SCALE, TB.SHIFT, TB.NEW_MEAN, TB.NEW_VAR):
+        torch.testing.assert_close(ws[row], ws_p[row], rtol=1e-4, atol=1e-5)
+    xh = (x.float() - ws_p[TB.MEAN].view(1, -1, 1, 1)) * ws_p[TB.RSTD].view(1, -1, 1, 1)
+    for got, want, terms in ((db, db_p, dy.float().abs()), (dg, dg_p, (dy.float() * xh).abs())):
+        mass = terms.sum(dim=(0, 2, 3))
+        assert bool(((got - want).abs() <= 1e-5 * mass).all())
+    step = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for got, want in ((y, y_p), (dx, dx_p)):
+        want = want.float()
+        torch.testing.assert_close(got.float(), want, rtol=step,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(12, 64, 64, 64), (12, 1024, 32, 32)])
+def test_batch_norm_launches_are_bit_identical(cuda_device, dtype, shape):
+    """No atomics: two launches on the same inputs give the same bits."""
+    x, dy, gamma, beta, rm, rv = _bn_inputs(shape, getattr(torch, dtype), cuda_device, seed=1)
+    first = [*TB.bn_forward(x, gamma, beta, rm, rv, 0.1)]
+    first += TB.bn_backward(x, dy, first[1])
+    second = [*TB.bn_forward(x, gamma, beta, rm, rv, 0.1)]
+    second += TB.bn_backward(x, dy, second[1])
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_batch_norm_wrapper_rejects_bad_input(cuda_device):
+    """A tensor that is not channels_last, or not bf16/fp32, and
+    per-channel tensors of another type or size raise; nothing launches."""
+    x, dy, gamma, beta, rm, rv = _bn_inputs((2, 32, 4, 4), torch.bfloat16, cuda_device)
+    before = (TB.fwd_launches, TB.bwd_launches)
+    with pytest.raises(ValueError, match="channels_last"):
+        TB.bn_forward(x.contiguous(), gamma, beta, rm, rv, 0.1)
+    with pytest.raises(ValueError, match="channels_last"):
+        TB.bn_forward(x[:, :16], gamma[:16], beta[:16], rm[:16], rv[:16], 0.1)
+    with pytest.raises(TypeError, match="dtype"):
+        TB.bn_forward(x.half(), gamma, beta, rm, rv, 0.1)
+    with pytest.raises(TypeError, match="dtype"):
+        TB.bn_forward(x.to(torch.int32), gamma, beta, rm, rv, 0.1)
+    with pytest.raises(ValueError, match="per-channel"):
+        TB.bn_forward(x, gamma.bfloat16(), beta, rm, rv, 0.1)
+    with pytest.raises(ValueError, match="per-channel"):
+        TB.bn_forward(x, gamma[:16], beta, rm, rv, 0.1)
+    _, ws = TB.bn_forward(x, gamma, beta, rm, rv, 0.1)
+    with pytest.raises(ValueError, match="channels_last"):
+        TB.bn_backward(x, dy.contiguous(), ws)
+    with pytest.raises(ValueError, match="do not match"):
+        TB.bn_backward(x, dy.float(), ws)
+    assert (TB.fwd_launches, TB.bwd_launches) == (before[0] + 1, before[1])
 
 
 def test_conv3x3_wrapper_rejects_bad_input(cuda_device):

@@ -117,8 +117,9 @@ def test_one_train_step_records_the_step_tree(weights, batch, monkeypatch):
     n_bn = sum(isinstance(m, M.BatchNorm) for m in M.build(SPEC, weights, device="cpu",
                                                            train=True).modules())
     names = [s["name"] for s in got]
-    assert names.count("bn") == n_bn
+    assert names.count("bn") == names.count("bn.backward") == n_bn
     (backward,) = [s for s in got if s["name"] == "train.backward"]
+    assert all(_inside(s, backward) for s in got if s["name"] == "bn.backward")
     (loss_bwd,) = [s for s in got if s["name"] == "train.loss.backward"]
     assert loss_bwd["parent"] == backward["id"]
     (loss,) = [s for s in got if s["name"] == "train.loss"]
@@ -142,11 +143,22 @@ def _nodes(root, stop):
     return seen
 
 
+class _OneRank:
+    """A sync BN mesh of one rank: train-mode BN through its eager ops."""
+
+    size = 1
+
+    @staticmethod
+    def pmean(t):
+        return t
+
+
 def test_a_modules_backward_span_is_contiguous():
     """Three conv + train-mode BN blocks, each BN's input also read by an
     operation before it: each block's backward span holds the start of
     every node its BN made and not that operation's, and the spans follow
-    one another in falling order."""
+    one another in falling order. The BNs take the sync path of one rank,
+    whose eager ops make a backward of many nodes (the kernels' is one)."""
     gen = torch.Generator().manual_seed(3)
     convs = [torch.nn.Conv2d(4, 4, 3, padding=1) for _ in range(3)]
     bns = [M.BatchNorm(4).train() for _ in range(3)]
@@ -154,6 +166,7 @@ def test_a_modules_backward_span_is_contiguous():
         bn.load_state_dict({"weight": torch.rand(4, generator=gen) + 0.5,
                             "bias": torch.zeros(4), "running_mean": torch.zeros(4),
                             "running_var": torch.ones(4)})
+        bn.sync = _OneRank()
     started, outside = [], []
     with spans.recording() as rec:
         h = torch.randn(2, 4, 8, 8, generator=gen)
