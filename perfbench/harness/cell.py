@@ -1,5 +1,8 @@
 """One run of one cell: set-up, the measured window, an optional traced
-sub-window, the check against the reference, and the result line.
+sub-window, the check against the reference, and the result line. Where an
+end-to-end reader asks for the card's own time (`CARD_TRACE`), a run
+without `--trace` traces the driver's steps after the window too, the
+card's activity and the host's CUDA calls only.
 
 `measure` does the work and returns the result; `main` adds what only a
 run on the card does (the look for the card, the check that no JAX module
@@ -44,7 +47,7 @@ def new_run(cell_name: str, seed: int, device, *, fault=None, bench=None, config
         config=config or manifest.config(entry["config"]),
         traffic=traffic or manifest.traffic(entry["traffic"]),
         limits=limits if limits is not None else manifest.limits(cell_name),
-        obs={}, setup_s=None, trace=None, trace_count=0, counted={}, readings=None,
+        obs={}, setup_s=None, trace=None, card=None, trace_count=0, counted={}, readings=None,
         control=None, control_readings=None, marks=[],
     )
 
@@ -64,6 +67,13 @@ def measure(run, seconds: float, traced: bool, t_start: float, control: bool = F
     run.setup_s = time.perf_counter() - t_start
     run.obs = drv.window(run, st, seconds)
     cuda = run.device.type == "cuda"
+    if cuda and not traced and any(getattr(manifest.reader(m["name"]), "CARD_TRACE", False)
+                                   for m in e2e):
+        # the card's own time for the driver's traced steps (an end-to-end
+        # reader with CARD_TRACE reads it from run.card)
+        fn, run.trace_count = drv.profile(run, st)
+        run.card = trace.read(trace.events(fn, run.trace_count, host_ops=False),
+                              window_from="cuda_runtime")
     if traced and cuda:
         fn, run.trace_count = drv.profile(run, st)
         with ExitStack() as stack:  # the readers' hooks see the first pass only

@@ -70,7 +70,23 @@ def test_cell_files_found_by_name(cell):
     assert (manifest.PERFBENCH / "reference" / f"{config['family']}.py").exists()
 
 
+def published_file(config: dict) -> str:
+    """The file of the reference repository that defines the configuration's
+    model: a PIDNet model's Cityscapes YAML; for a paper ablation of another
+    family, for which the reference publishes no YAML, its model file."""
+    if config["family"] == "pidnet":
+        return f"configs/cityscapes/{config['name']}_cityscapes.yaml"
+    return f"models/others/{config['name']}.py"
+
+
+def names_its_configuration(source: str, config: dict) -> bool:
+    return source.endswith("/" + published_file(config))
+
+
 def test_configs_files_and_published_widths():
+    """Each configuration has its own file, is used by a cell, is cut in
+    nothing, and its `source` ends with the published file of the model
+    that its file names by `name` and `family` (`published_file`)."""
     files = [c["file"] for c in BENCH["configs"]]
     assert len(set(files)) == len(files)
     used = {w["config"] for w in BENCH["workloads"]}
@@ -78,7 +94,25 @@ def test_configs_files_and_published_widths():
         assert c["name"] in used and c["file"] == f"perfbench/configs/{c['name']}.json"
         assert c["reduced"] == []
         config = json.loads((manifest.ROOT / c["file"]).read_text())
-        assert c["source"].endswith(f"{config['name']}_cityscapes.yaml")
+        assert names_its_configuration(c["source"], config), (c["source"], published_file(config))
+
+
+REPO = "https://github.com/XuJiacong/PIDNet/blob/main/"
+PIDNET_S = {"name": "pidnet_small", "family": "pidnet"}
+BISENET = {"name": "bisenet_adb_bag", "family": "bisenet"}
+
+
+@pytest.mark.parametrize("source,config,named", [
+    (REPO + "configs/cityscapes/pidnet_small_cityscapes.yaml", PIDNET_S, True),
+    (REPO + "models/others/bisenet_adb_bag.py", BISENET, True),
+    (REPO + "configs/cityscapes/pidnet_large_cityscapes.yaml", PIDNET_S, False),
+    (REPO + "models/pidnet.py", PIDNET_S, False),
+    (REPO + "configs/cityscapes/bisenet_adb_bag_cityscapes.yaml", BISENET, False),
+    (REPO + "models/others/ddrnet_23_adb_bag.py", BISENET, False),
+    ("https://arxiv.org/abs/2206.02066", BISENET, False),
+])
+def test_the_source_rule(source, config, named):
+    assert names_its_configuration(source, config) is named
 
 
 def test_run_seconds_fits_a_full_check():

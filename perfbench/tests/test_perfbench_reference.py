@@ -2,7 +2,9 @@
 the port runs its kernels' plain versions: the folded serving forward, and
 a float32 training step's loss, update and BN statistics."""
 
+import pkgutil
 import sys
+from contextlib import contextmanager
 
 import pytest
 import torch
@@ -11,8 +13,19 @@ from perfbench.harness import inputs, manifest
 from perfbench.harness.program import spec_of
 from perfbench.reference import train as R
 
+# The training comparison's thread count. The CPU's float32 convs sum in an
+# order that follows the count, and a few of the step's millions of ReLU
+# inputs lie within that rounding of 0: where one changes sign on one side,
+# every leaf before it takes or loses that pixel's gradient through the
+# train-mode BNs, up to 2.6e-3 of its norm against the 1e-4 limit. On an
+# x86 CPU with AVX-512, the float32 reference flips one such input against
+# its own float64 run at 1, 2 and 3 threads on PIDNet-L and at 1 and 3 on
+# PIDNet-S, and the comparison fails exactly there; at 4 and 8 it flips
+# none, and the port agrees to 0.06 of the limit. So the count is pinned.
+THREADS = 4
 
-@pytest.fixture(params=["pidnet_s", "pidnet_l"])
+
+@pytest.fixture(params=[c["name"] for c in manifest.benchmark()["configs"]])
 def config(request):
     return manifest.config(request.param)
 
@@ -20,8 +33,10 @@ def config(request):
 def test_reference_imports_nothing_of_the_program():
     import subprocess
 
-    code = ("import sys; import perfbench.reference.pidnet, perfbench.reference.train, "
-            "perfbench.reference.quant; "
+    names = [f"perfbench.reference.{m.name}"
+             for m in pkgutil.iter_modules([str(manifest.PERFBENCH / "reference")])]
+    assert "perfbench.reference.train" in names
+    code = (f"import sys; import {', '.join(names)}; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'pidnet_tpu_torch', 'pidnet_tpu', 'jax', 'jaxlib', 'flax'}); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -45,10 +60,35 @@ def test_folded_forward_matches_the_port(config):
     assert torch.allclose(mine, theirs, rtol=1e-4, atol=1e-4 * float(theirs.abs().max()))
 
 
+@contextmanager
+def torch_threads(n: int):
+    """Run at `n` threads, and give the process its count back after."""
+    around = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(around)
+
+
 def test_train_step_matches_the_port(config):
     """One float32 step of the port's `make_train_step` with FullLoss on
     the recipe against `sgd_steps`: the loss, every leaf's update direction
-    and change, BN running statistics included."""
+    and change, BN running statistics included; at `THREADS` threads."""
+    with torch_threads(THREADS):
+        _compare_one_train_step(config)
+
+
+def test_torch_threads_pins_the_count_and_gives_it_back():
+    """In a process at 2 threads, as the repository's tests set, the pin
+    runs at `THREADS` and leaves the 2 threads as they were."""
+    with torch_threads(2):
+        with torch_threads(THREADS):
+            assert torch.get_num_threads() == THREADS
+        assert torch.get_num_threads() == 2
+
+
+def _compare_one_train_step(config):
     from pidnet_tpu_torch.losses.criterion import FullLoss
     from pidnet_tpu_torch.models import pidnet as M
     from pidnet_tpu_torch.train.step import TrainState, make_train_step
@@ -60,8 +100,8 @@ def test_train_step_matches_the_port(config):
     w = inputs.weights(config, "cpu", 8)
     batch = inputs.crops(traffic, config, "cpu", 8)[0]
     ts = TrainState.create(M.build(spec, w, device="cpu", train=True))
-    loss_fn = FullLoss(num_outputs=2, align_corners=rec["align_corners"],
-                       ignore_label=rec["ignore_label"],
+    loss_fn = FullLoss(num_outputs=len(rec["balance_weights"]),
+                       align_corners=rec["align_corners"], ignore_label=rec["ignore_label"],
                        class_weights=torch.tensor(rec["class_weights"]),
                        ohem_thres=rec["ohem_thres"], ohem_kept=rec["min_kept"], balance_weights=rec["balance_weights"],
                        sb_weights=rec["sb_weights"], bd_coeff=rec["bd_coeff"])

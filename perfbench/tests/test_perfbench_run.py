@@ -15,17 +15,20 @@ from perfbench.harness import cell, manifest
 
 RESULT_KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 # Sizes a CPU test can hold. Training keeps the mix's batch of 12, whose BN
-# statistics the limits were read at, on PIDNet-S at 128 x 128.
-SMALL = {"serve": ({"batch": 2, "height": 64, "width": 128}, None),
-         "train": ({"batch": 12, "height": 128, "width": 128}, "pidnet_s")}
+# statistics the limits were read at, at 128 x 128.
+SMALL = {"serve": {"batch": 2, "height": 64, "width": 128},
+         "train": {"batch": 12, "height": 128, "width": 128}}
 
 
 def small_run(name: str, seed: int, fault=None):
     entry = manifest.cell(name)
     traffic = manifest.traffic(entry["traffic"])
-    sizes, config = SMALL[traffic["driver"]]
-    return cell.new_run(name, seed, "cpu", fault=fault, traffic={**traffic, **sizes},
-                        config=manifest.config(config) if config else None)
+    config = manifest.config(entry["config"])
+    if traffic["driver"] == "train" and config["family"] == "pidnet":
+        # PIDNet-S, the family's smallest, stands in; other families keep their own
+        config = manifest.config("pidnet_s")
+    return cell.new_run(name, seed, "cpu", fault=fault,
+                        traffic={**traffic, **SMALL[traffic["driver"]]}, config=config)
 
 
 def test_result_line_has_the_contract_keys():
@@ -77,6 +80,17 @@ def test_a_run_loads_no_jax():
                          cwd=manifest.ROOT, timeout=900)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "[] True"
+
+
+def test_the_card_time_reader():
+    """`train_card_ms` reads the card's busy time of the traced steps per
+    step, and nothing where no card pass ran (a run on the CPU)."""
+    reader = manifest.reader("train_card_ms")
+    assert reader.CARD_TRACE
+    run = small_run("pidnet_l.train.b12", 5)
+    assert reader.read(run) is None
+    run.card, run.trace_count = {"busy_s": 0.18, "window_s": 0.25}, 3
+    assert reader.read(run) == pytest.approx(60.0)
 
 
 def test_forbidden_names_are_whole_top_level_names(monkeypatch):
