@@ -26,6 +26,11 @@ gates the result.
   `resize_sharded`); the 1x1 convs and BNs after each global pool run on
   the pooled vector, replicated over the row (`replicated`). There is no
   1/64 stage and no gather: the 1/32 maps stay sharded.
+- Spans (utils/spans.py): `model.context` (the trunk, ARMs, `conv_avg`,
+  the `conv_head`s and ADB), `model.spatial`, `model.bag` (Light_Bag),
+  `model.ffm`, `model.head` (the heads with their upsample) and, while
+  recording, `model.head.backward`, one backward span per head from its
+  output to its input.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from pidnet_tpu_torch.models.pidnet import (
 )
 from pidnet_tpu_torch.nn.functional import global_avg_pool, max_pool2d, relu, sigmoid
 from pidnet_tpu_torch.parallel import spatial as SP
+from pidnet_tpu_torch.utils import spans
 
 
 @dataclass(frozen=True)
@@ -219,11 +225,22 @@ class BiSeNet(Network):
         """NHWC image (N,H,W,3), H and W multiples of 64 -> NHWC logits at
         the input's resolution (a list of four with `augment`)."""
         x = x.permute(0, 3, 1, 2)
-        feat_cp8, feat_cp16, feat_d_out, feat_d = self.cp(x)
-        feat_sp = self.sp(x)
-        out = self.conv_out(self.ffm(self.dfm(feat_sp, feat_cp8, feat_d_out)))
-        if self.spec.augment:
-            heads = [self.conv_out16(feat_cp8), self.conv_out32(feat_cp16), out,
-                     self.conv_outd(feat_d)]
-            return [h.permute(0, 2, 3, 1) for h in heads]
-        return out.permute(0, 2, 3, 1)
+        with spans.span("model.context"):
+            feat_cp8, feat_cp16, feat_d_out, feat_d = self.cp(x)
+        with spans.span("model.spatial"):
+            feat_sp = self.sp(x)
+        with spans.span("model.bag"):
+            feat_bg = self.dfm(feat_sp, feat_cp8, feat_d_out)
+        with spans.span("model.ffm"):
+            feat_fuse = self.ffm(feat_bg)
+        with spans.span("model.head"):
+            out = self.conv_out(feat_fuse)
+            heads, inputs = [out], [feat_fuse]
+            if self.spec.augment:
+                heads = [self.conv_out16(feat_cp8), self.conv_out32(feat_cp16), out,
+                         self.conv_outd(feat_d)]
+                inputs = [feat_cp8, feat_cp16, feat_fuse, feat_d]
+            heads = [h.permute(0, 2, 3, 1) for h in heads]
+        for h, i in zip(heads, inputs):  # while recording: each head's output to its input
+            spans.backward_span("model.head.backward", h, [i])
+        return heads if self.spec.augment else heads[0]

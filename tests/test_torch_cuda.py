@@ -16,6 +16,7 @@ from pidnet_tpu_torch import engine
 from pidnet_tpu_torch.convert.fold import fold_state_dict
 from pidnet_tpu_torch.convert.weights import load_npz
 from pidnet_tpu_torch.losses.criterion import FullLoss
+from pidnet_tpu_torch.models import bisenet
 from pidnet_tpu_torch.models import pidnet as M
 from pidnet_tpu_torch.ops import batch_norm as TB
 from pidnet_tpu_torch.ops import ce_front as TC
@@ -416,6 +417,32 @@ def test_train_step_runs_every_bn_on_the_kernels(cuda_device, name, bns):
     metrics = step(img.to(cuda_device), lab.to(cuda_device), edge.to(cuda_device), 0.01)
     assert np.isfinite(float(metrics["loss"])) and len(calls) == bns
     assert (TB.fwd_launches, TB.bwd_launches) == (before[0] + bns, before[1] + bns)
+
+
+def test_bisenet_train_step_at_the_cells_size_counts_its_launches(cuda_device):
+    """One bf16 BiSeNetV1 step at the recipe's 12 x 1024^2, as the
+    benchmark's cell `bisenetv1.train.b12` runs it (heads upsampled to the
+    input's size inside the model): 3 K2 and 3 K3 launches at scale 1
+    (the two auxiliary heads' CE and the final head's maps, which serve its
+    OHEM and the boundary-aware CE), 1 K1 (the accuracy), and 50 BN
+    launches each way; a finite loss."""
+    spec = bisenet.spec_for("bisenet_adb_bag", 19, augment=True)
+    model = M.build(spec, M.init(spec, torch.Generator().manual_seed(0)), device=cuda_device,
+                    train=True)
+    ts = TrainState.create(model)
+    loss_fn = FullLoss(num_outputs=3, balance_weights=M.balance_weights(spec), ignore_label=255,
+                       ohem_kept=262144)
+    step = make_train_step(ts, loss_fn, compute_dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    img = torch.randn((12, 1024, 1024, 3), generator=g, device=cuda_device)
+    lab = torch.randint(0, 19, (12, 1024, 1024), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    edge = (torch.rand((12, 1024, 1024), generator=g, device=cuda_device) < 0.1).float()
+    before = (TU.launches, TC.fwd_launches, TC.bwd_launches, TB.fwd_launches, TB.bwd_launches)
+    metrics = step(img, lab, edge, 0.01)
+    after = (TU.launches, TC.fwd_launches, TC.bwd_launches, TB.fwd_launches, TB.bwd_launches)
+    assert np.isfinite(float(metrics["loss"]))
+    assert [a - b for a, b in zip(after, before)] == [1, 3, 3, 50, 50]
 
 
 # (N, C, H, W) of train-mode BN: PIDNet-L's stem at 12 x 1024^2 and 1/64 of

@@ -1,7 +1,8 @@
 """The program's spans (pidnet_tpu_torch/utils/spans.py): off they cost a
-flag check and register nothing; on, one PIDNet-S train step and one
-serving call record the span tree the benchmark's readers take, with
-results bit-identical to a step recorded off, on the profiler's clock."""
+flag check and register nothing; on, one PIDNet-S train step, one
+BiSeNetV1 train step and one serving call record the span tree the
+benchmark's readers take, with results bit-identical to a step recorded
+off, on the profiler's clock."""
 
 import json
 import statistics
@@ -16,6 +17,7 @@ from pidnet_tpu_torch import engine
 from pidnet_tpu_torch.convert.fold import fold_state_dict
 from pidnet_tpu_torch.data.cityscapes import CLASS_WEIGHTS
 from pidnet_tpu_torch.losses.criterion import FullLoss
+from pidnet_tpu_torch.models import bisenet
 from pidnet_tpu_torch.models import pidnet as M
 from pidnet_tpu_torch.tools import common
 from pidnet_tpu_torch.tools import train as train_cli
@@ -25,6 +27,7 @@ from pidnet_tpu_torch.utils import spans
 torch.set_num_threads(2)
 
 SPEC = M.spec_for("pidnet_s", 19, augment=True)
+BISENET = bisenet.spec_for("bisenet_adb_bag", 19, augment=True)
 LOSS_KW = dict(ignore_label=255, class_weights=CLASS_WEIGHTS, ohem_thres=0.9, ohem_kept=4096)
 
 
@@ -44,15 +47,34 @@ def batch():
     return tuple(torch.from_numpy(a) for a in (img, lab, edge))
 
 
-def _step(weights):
-    ts = TrainState.create(M.build(SPEC, weights, device="cpu", train=True))
-    return ts, make_train_step(ts, FullLoss(**LOSS_KW))
+@pytest.fixture(scope="module")
+def bisenet_weights():
+    return M.init(BISENET, torch.Generator().manual_seed(0))
 
 
-def _stepped(weights, batch, monkeypatch, record: bool):
+@pytest.fixture(scope="module")
+def bisenet_batch():
+    """4 samples: BiSeNet's BNs after its global pools normalise over the
+    batch's pooled vectors, ill-conditioned at 2."""
+    rng = np.random.default_rng(22)
+    n, h, w = 4, 64, 128
+    img = rng.standard_normal((n, h, w, 3), dtype=np.float32)
+    lab = rng.integers(0, 19, (n, h, w)).astype(np.int32)
+    edge = (rng.random((n, h, w)) < 0.1).astype(np.float32)
+    return tuple(torch.from_numpy(a) for a in (img, lab, edge))
+
+
+def _step(weights, spec=SPEC):
+    ts = TrainState.create(M.build(spec, weights, device="cpu", train=True))
+    loss_fn = FullLoss(num_outputs=len(M.balance_weights(spec)),
+                       balance_weights=M.balance_weights(spec), **LOSS_KW)
+    return ts, make_train_step(ts, loss_fn)
+
+
+def _stepped(weights, batch, monkeypatch, record: bool, spec=SPEC):
     """One step from `weights`: (its gradients, the state after it, the
     recorder or None)."""
-    ts, step = _step(weights)
+    ts, step = _step(weights, spec)
     grads = []
     original = torch.autograd.grad
 
@@ -78,11 +100,10 @@ def _inside(child, parent):
     return parent["t0_ns"] <= child["t0_ns"] and child["t1_ns"] <= parent["t1_ns"]
 
 
-def test_off_returns_the_shared_null_context_and_registers_no_hook(weights, batch):
-    assert spans.span("train.step") is spans.span("bn") is spans._NULL
-    with spans.recording() as rec:
-        pass
-    ts, step = _step(weights)
+def _watched_step(weights, batch, spec=SPEC) -> list[str]:
+    """The functions of utils/spans.py called, and the autograd hooks
+    registered, during one step from `weights` while nothing records."""
+    ts, step = _step(weights, spec)
     called = []
 
     def watch(frame, event, arg):
@@ -97,7 +118,22 @@ def test_off_returns_the_shared_null_context_and_registers_no_hook(weights, batc
         step(*batch, 0.01)
     finally:
         sys.setprofile(None)
+    return called
+
+
+def test_off_returns_the_shared_null_context_and_registers_no_hook(weights, batch):
+    assert spans.span("train.step") is spans.span("bn") is spans._NULL
+    with spans.recording() as rec:
+        pass
+    called = _watched_step(weights, batch)
     assert rec.spans == []
+    assert set(called) <= {"span", "backward_span"}, set(called)
+
+
+def test_bisenet_off_registers_no_hook(bisenet_weights, bisenet_batch):
+    """BiSeNet's spans and its heads' backward spans, off: flag checks."""
+    called = _watched_step(bisenet_weights, bisenet_batch, BISENET)
+    assert called.count("backward_span") == 4 + 1  # the heads' and the loss's
     assert set(called) <= {"span", "backward_span"}, set(called)
 
 
@@ -190,6 +226,47 @@ def test_a_modules_backward_span_is_contiguous():
         assert by_name[f"block{i}"]["t0_ns"] <= t <= by_name[f"block{i}"]["t1_ns"]
     assert len(outside) == 3
     assert not any(s["t0_ns"] <= t <= s["t1_ns"] for t in outside for s in blocks)
+
+
+def test_bisenet_step_records_its_parts_and_heads_backward(bisenet_weights, bisenet_batch,
+                                                           monkeypatch):
+    """A BiSeNet train step, recorded: its five parts in order under
+    `train.forward` (beside its BNs), and one `model.head.backward` per
+    head inside `train.backward`, on the thread that runs the backward,
+    each holding the BN backward spans of its head's own BN."""
+    _, _, rec = _stepped(bisenet_weights, bisenet_batch, monkeypatch, record=True,
+                         spec=BISENET)
+    got = rec.spans
+    assert all(s["t1_ns"] is not None for s in got)
+    by_id = {s["id"]: s for s in got}
+    (forward,) = [s for s in got if s["name"] == "train.forward"]
+    parts = [s for s in got if s["parent"] == forward["id"] and s["name"] != "bn"]
+    assert [s["name"] for s in parts] == ["model.context", "model.spatial", "model.bag",
+                                          "model.ffm", "model.head"]
+    assert all(_inside(s, forward) for s in parts)
+    (backward,) = [s for s in got if s["name"] == "train.backward"]
+    heads = [s for s in got if s["name"] == "model.head.backward"]
+    assert len(heads) == 4
+    assert all(_inside(s, backward) for s in heads)
+    (loss_bwd,) = [s for s in got if s["name"] == "train.loss.backward"]
+    assert all(loss_bwd["t1_ns"] <= s["t0_ns"] for s in heads)
+    inner = [s for s in got if s["name"] == "bn.backward" and by_id[s["parent"]]["name"]
+             == "model.head.backward"]
+    assert len(inner) == 4  # each head's one BN, in its 3x3 conv+BN+ReLU
+
+
+def test_bisenet_recording_leaves_the_step_bit_identical(bisenet_weights, bisenet_batch,
+                                                         monkeypatch):
+    g_off, s_off, _ = _stepped(bisenet_weights, bisenet_batch, monkeypatch, record=False,
+                               spec=BISENET)
+    g_on, s_on, _ = _stepped(bisenet_weights, bisenet_batch, monkeypatch, record=True,
+                             spec=BISENET)
+    assert len(g_off) == len(g_on) > 0
+    for a, b in zip(g_off, g_on):
+        assert torch.equal(a, b)
+    assert set(s_off) == set(s_on)
+    for k in s_off:
+        assert torch.equal(s_off[k], s_on[k]), k
 
 
 def test_recording_leaves_the_step_bit_identical(weights, batch, monkeypatch):
